@@ -1,0 +1,298 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+1. Builds the CUDA kernel of droid_slam_tpu_torch from csrc/ anew.
+2. Kernel phase: at the shapes of the 240×320 main path (64 edges, 4
+   pyramid levels, bf16 volumes, seeded coordinates: the identity grid
+   plus a small flow, as an update round gives them, with out-of-bounds
+   ones), holds each kernel against its plain PyTorch version on the card
+   (atol = rtol = 1e-5; both layouts of the lookup) and times the kernel,
+   the plain version and one PyTorch library call computing the same
+   function (CUDA events around back-to-back calls, median after
+   warm-up), and computes the kernel's bound (bytes or operations).
+3. Main-path phase: `Droid(SLAMConfig())` with the shipped weights tracks
+   80 frames of a synthetic textured-box sequence one by one and terminates
+   (global BA + trajectory fill); launch counts are reset just before and
+   read just after.  Prints keyframes, tracking rate, terminate time, ATE
+   after Sim(3) alignment (must stay under 10% of the path length),
+   peak device memory.
+4. Prints the card's name and power limit, one {"kernels": [...]} line,
+   and as the last line {"ok": true, "device": {...}}.
+
+Any failed phase raises, so the script exits non-zero.  It needs a CUDA
+card: without one it exits 1 before printing any result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet), for the bound: memory rate and the
+# float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# f32 operations per query of the lookup: 8 rows x 7 x-blends and 49
+# y-blends, two products and one sum each
+LOOKUP_FLOPS_PER_QUERY = (8 * 7 + 49) * 3
+RADIUS = 3
+# frames of the main-path phase
+FRAMES = 80
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError("nvidia-smi failed: " + out.stderr)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, warmup=3, reps=10, batches=5):
+    """Time of one call: CUDA events around `reps` back-to-back calls,
+    divided by `reps`; the median over `batches` such runs, after
+    warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
+
+
+def grid_sample_lookup(planes, coords):
+    """One library call for the same windowed lookup: bilinear
+    grid_sample with zero padding of (Q, 1, h2, w2) planes at a 7×7 grid
+    per query (align_corners=True maps pixel indices exactly).  Planes and
+    grid are float32: grid_sample wants one dtype for both, and a bf16
+    grid would quantize the sample positions."""
+    from torch.nn import functional as F
+
+    Q, h2, w2 = planes.shape
+    off = torch.arange(-RADIUS, RADIUS + 1, device=coords.device,
+                       dtype=torch.float32)
+    gx = coords[:, None, None, 0] + off[None, None, :]       # (Q,1,7) ox
+    gy = coords[:, None, None, 1] + off[None, :, None]       # (Q,7,1) oy
+    gx = 2.0 * gx / max(w2 - 1, 1) - 1.0
+    gy = 2.0 * gy / max(h2 - 1, 1) - 1.0
+    grid = torch.stack(torch.broadcast_tensors(gx, gy), dim=-1)
+    out = F.grid_sample(planes[:, None], grid.to(planes.dtype),
+                        mode="bilinear", padding_mode="zeros",
+                        align_corners=True)                   # (Q,1,oy,ox)
+    return out[:, 0].transpose(1, 2).reshape(Q, -1)
+
+
+def lookup_bytes(coords, h2, w2, elem):
+    """Least bytes of one lookup with these coordinates: the in-bounds
+    window taps each query must read (64 at most), its 49 f32 outputs and
+    its 8 coordinate bytes."""
+    x0 = torch.floor(coords[..., 0]).clamp(-2e4, 2e4).long()
+    y0 = torch.floor(coords[..., 1]).clamp(-2e4, 2e4).long()
+    offs = torch.arange(2 * RADIUS + 2, device=coords.device) - RADIUS
+    nx = ((x0[..., None] + offs >= 0) & (x0[..., None] + offs < w2)).sum(-1)
+    ny = ((y0[..., None] + offs >= 0) & (y0[..., None] + offs < h2)).sum(-1)
+    taps = int((nx * ny).sum())
+    q = coords.shape[0] * coords.shape[1]
+    return taps * elem + q * 49 * 4 + q * 8
+
+
+def kernel_phase(corr):
+    """The lookup kernel at the main path's shapes, both layouts."""
+    E, h, w = 64, 30, 40                       # 240x320 at 1/8
+    HW = h * w
+    rng = np.random.default_rng(0)
+    levels = []
+    report = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                  bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0,
+                  library_max_abs_err=0.0)
+    for lvl in range(4):
+        h2, w2 = h >> lvl, w >> lvl
+        vol = torch.from_numpy(
+            rng.standard_normal((E, h2, w2, HW)).astype(np.float32)
+        ).cuda().to(torch.bfloat16)            # query-last, as cached
+        # the identity grid at level scale plus a flow of a few pixels at
+        # level 0, as an update round gives them; ~2% of the queries far
+        # out of bounds, as padded queries are
+        gy, gx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        grid = np.stack([gx, gy], -1).reshape(1, HW, 2)
+        c = (grid + rng.normal(0.0, 2.0, (E, HW, 2))) / 2 ** lvl
+        c[rng.random((E, HW)) < 0.02] = -1e4
+        coords = torch.from_numpy(c.astype(np.float32)).cuda()
+        planes = vol.permute(0, 3, 1, 2).contiguous()          # (E,HW,h2,w2)
+        for view in (vol, corr.query_major_view(planes)):
+            got = corr.lookup_flat_cuda(view, coords)
+            ref = corr.lookup_flat_reference(view, coords)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref, **TOL)
+            report["max_abs_err"] = max(report["max_abs_err"],
+                                        float((got - ref).abs().max()))
+        flat = planes.reshape(E * HW, h2, w2).float()
+        cflat = coords.reshape(E * HW, 2)
+        lib = grid_sample_lookup(flat, cflat)
+        ref = corr.lookup_flat_reference(vol, coords).reshape(E * HW, -1)
+        report["library_max_abs_err"] = max(
+            report["library_max_abs_err"],
+            float((lib.float() - ref).abs().max()))
+
+        ms = cuda_time_ms(lambda: corr.lookup_flat_cuda(vol, coords))
+        plain = cuda_time_ms(lambda: corr.lookup_flat_reference(vol, coords),
+                             reps=5)
+        libms = cuda_time_ms(lambda: grid_sample_lookup(flat, cflat))
+        nbytes = lookup_bytes(coords, h2, w2, vol.element_size())
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = E * HW * LOOKUP_FLOPS_PER_QUERY / F32_FLOPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        levels.append(dict(level=lvl, shape=[E, h2, w2, HW], ms=ms,
+                           plain_ms=plain, library_ms=libms,
+                           bound_ms=bound, bytes=nbytes, bytes_ms=bytes_ms,
+                           ops_ms=ops_ms))
+        report["ms"] += ms
+        report["plain_ms"] += plain
+        report["library_ms"] += libms
+        report["bound_ms"] += bound
+        report["bytes_ms"] += bytes_ms
+        report["ops_ms"] += ops_ms
+        del vol, planes, flat
+        torch.cuda.empty_cache()
+    report["levels"] = levels
+    return report
+
+
+def umeyama_ate(est, gt):
+    """ATE RMSE of est (N,3) vs gt (N,3) after a Sim(3) alignment."""
+    mu_e, mu_g = est.mean(0), gt.mean(0)
+    e, g = est - mu_e, gt - mu_g
+    cov = g.T @ e / len(est)
+    U, D, Vt = np.linalg.svd(cov)
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    R = U @ S @ Vt
+    var = (e ** 2).sum() / len(est)
+    s = np.trace(np.diag(D) @ S) / max(var, 1e-12)
+    aligned = s * (R @ e.T).T + mu_g
+    return float(np.sqrt(((aligned - gt) ** 2).sum(-1).mean()))
+
+
+def main_path_phase(corr, n_frames):
+    from droid_slam_tpu_torch.config import SLAMConfig
+    from droid_slam_tpu_torch.data.synthetic import render_box_scene
+    from droid_slam_tpu_torch.runtime.slam import Droid
+
+    cfg = SLAMConfig()
+    H, W = cfg.image_size
+    t = time.time()
+    scene = render_box_scene(n_frames, H, W, seed=1, motion_scale=0.12)
+    print(f"scene: {n_frames} frames {H}x{W} rendered in "
+          f"{time.time() - t:.1f} s", flush=True)
+    images, intr = scene["images"], scene["intrinsics"][0]
+
+    droid = Droid(cfg, weights_path="weights/droid_synth.npz")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    corr.reset_launch_counts()
+    t = time.time()
+    passed = sum(bool(droid.track(float(k), images[k], intrinsics=intr))
+                 for k in range(n_frames))
+    torch.cuda.synchronize()
+    t_track = time.time() - t
+    n_kf = droid.video.counter
+    launches_track = corr.launch_counts()["corr_lookup"]
+    t = time.time()
+    traj = droid.terminate(
+        ((float(k), images[k], intr) for k in range(n_frames)))
+    torch.cuda.synchronize()
+    t_term = time.time() - t
+    launches = corr.launch_counts()["corr_lookup"]
+    peak = torch.cuda.max_memory_allocated()
+
+    if traj.shape != (n_frames, 7) or not np.all(np.isfinite(traj)):
+        raise RuntimeError(f"bad trajectory: shape {traj.shape}, finite "
+                           f"{np.all(np.isfinite(traj))}")
+    qn = np.linalg.norm(traj[:, 3:], axis=-1)
+    if np.abs(qn - 1).max() > 1e-3:
+        raise RuntimeError(f"non-unit quaternions: {np.abs(qn - 1).max()}")
+    if n_kf <= cfg.warmup:
+        raise RuntimeError(f"only {n_kf} keyframes (warmup {cfg.warmup})")
+    if launches <= 0:
+        raise RuntimeError("the main path never launched the lookup kernel")
+    gt = scene["poses_c2w"][:, :3]
+    ate = umeyama_ate(traj[:, :3], gt)
+    path = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    if not ate < 0.1 * path:
+        raise RuntimeError(f"ATE {ate} exceeds 10% of the path {path}")
+    out = dict(frames=n_frames, filter_passed=passed, keyframes=n_kf,
+               track_s=t_track, track_fps=n_frames / t_track,
+               terminate_s=t_term, ate_rmse=ate, path_length=path,
+               lookup_launches_track=launches_track,
+               lookup_launches=launches, peak_mem_bytes=peak)
+    print("main path: " + json.dumps(out), flush=True)
+    return out
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+
+    from droid_slam_tpu_torch.ops import corr
+    from droid_slam_tpu_torch.ops.cuda_build import BUILD_LOG, load
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    t = time.time()
+    load("corr_lookup", force=True)
+    print(f"kernel build: {time.time() - t:.1f} s", flush=True)
+    print(f"--- nvcc corr_lookup ---\n{BUILD_LOG['corr_lookup'].strip()}",
+          flush=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kern = kernel_phase(corr)
+    print("kernel phase: " + json.dumps(kern), flush=True)
+
+    main = main_path_phase(corr, FRAMES)
+
+    kernels = [dict(
+        name="corr_lookup", route="cuda",
+        source="droid_slam_tpu_torch/csrc/corr_lookup.cu",
+        replaces="droid_slam_tpu/ops/corr_pallas.py:333 "
+                 "(lookup_flat_pallas_v3)",
+        launches=main["lookup_launches"],
+        launches_main_path=main["lookup_launches"],
+        max_abs_err=kern["max_abs_err"],
+        ms=kern["ms"], kernel_ms=kern["ms"], plain_ms=kern["plain_ms"],
+        bound_ms=kern["bound_ms"],
+        bound_by="bytes" if kern["bytes_ms"] >= kern["ops_ms"]
+        else "operations",
+        library_ms=kern["library_ms"],
+        note="ms per 4-level pyramid lookup of 64 edges at 240x320, "
+             "identity grid plus a small flow",
+    )]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    os.chdir(os.path.dirname(os.path.abspath(__file__)))
+    sys.exit(main())

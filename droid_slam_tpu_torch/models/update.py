@@ -1,0 +1,108 @@
+"""The recurrent update operator.
+
+Corr/flow encoders feed a ConvGRU; a `delta` head (2-ch flow correction)
+and a `weight` head (2-ch sigmoid confidence); `GraphAgg` averages the
+GRU state over edges that share a source frame and emits the per-frame
+BA damping `eta = 0.01·softplus(·)`.
+
+Public tensors are channels-last ((E, H, W, C)), as in the JAX package.
+The delta/weight heads run unfused (the JAX package fuses them into one
+conv pair for the TPU's matrix unit; the math is the same).
+"""
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from .gru import ConvGRU
+from .layers import conv, to_nchw, to_nhwc
+
+COR_PLANES = 4 * (2 * 3 + 1) ** 2  # 196
+
+
+def segment_mean(x, ix, nseg):
+    """Mean of x (E, ...) over segment ids ix (E,); ids >= nseg are
+    dropped.  Sums in float32, result in x's dtype.  Returns (nseg, ...)."""
+    keep = ix < nseg
+    idx = ix[keep]
+    tot = torch.zeros((nseg,) + x.shape[1:], device=x.device,
+                      dtype=torch.float32)
+    tot.index_add_(0, idx, x[keep].float())
+    cnt = torch.bincount(idx, minlength=nseg).clamp(min=1).float()
+    return (tot / cnt.reshape((-1,) + (1,) * (x.ndim - 1))).to(x.dtype)
+
+
+class GraphAgg(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.conv1 = conv(128, 128, 3)
+        self.conv2 = conv(128, 128, 3)
+        self.eta = conv(128, 1, 3)
+        self.upmask = conv(128, 8 * 8 * 9, 1, pad=0)
+
+    def forward(self, net, ix, nseg):
+        """net: (E, 128, H, W) NCHW; ix: (E,) segment ids.
+
+        Returns eta (nseg, H, W) f32.  The `upmask` head (convex
+        upsampling) is loaded with the weights but not run: upsampling is
+        not ported.
+        """
+        net = F.relu(self.conv1(net))
+        net = segment_mean(net, ix, nseg)
+        net = F.relu(self.conv2(net))
+        return 0.01 * F.softplus(self.eta(net).float())[:, 0]
+
+
+class UpdateModule(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.corr_encoder_0 = conv(COR_PLANES, 128, 1, pad=0)
+        self.corr_encoder_2 = conv(128, 128, 3)
+        self.flow_encoder_0 = conv(4, 128, 7)
+        self.flow_encoder_2 = conv(128, 64, 3)
+        self.gru = ConvGRU(128, 128 + 128 + 64)
+        self.delta_0 = conv(128, 128, 3)
+        self.delta_2 = conv(128, 2, 3)
+        self.weight_0 = conv(128, 128, 3)
+        self.weight_2 = conv(128, 2, 3)
+        self.agg = GraphAgg()
+
+    def forward(self, net, inp, corr, flow=None, ix=None, nseg=None):
+        """One update-operator step.
+
+        Args:
+          net:  (E, H, W, 128) GRU hidden state.
+          inp:  (E, H, W, 128) context features.
+          corr: (E, H, W, 196) correlation taps.
+          flow: (E, H, W, 4) motion features, or None for zeros.
+          ix:   optional (E,) source-frame segment ids for GraphAgg.
+          nseg: segment count for GraphAgg.
+
+        Returns (net, delta, weight[, eta]); net is (E, H, W, 128)
+        in the module's dtype, delta/weight are f32 (E, H, W, 2).
+        """
+        dt = self.corr_encoder_0.weight.dtype
+        E, H, W, _ = net.shape
+        net = to_nchw(net.to(dt))
+        inp = to_nchw(inp.to(dt))
+        if flow is None:
+            flow = torch.zeros((E, 4, H, W), device=net.device, dtype=dt)
+        else:
+            flow = to_nchw(flow.to(dt))
+
+        cor = F.relu(self.corr_encoder_0(to_nchw(corr.to(dt))))
+        cor = F.relu(self.corr_encoder_2(cor))
+        flo = F.relu(self.flow_encoder_0(flow))
+        flo = F.relu(self.flow_encoder_2(flo))
+
+        net = self.gru(net, torch.cat([inp, cor, flo], dim=1))
+
+        delta = self.delta_2(F.relu(self.delta_0(net))).float()
+        weight = torch.sigmoid(
+            self.weight_2(F.relu(self.weight_0(net))).float())
+        delta, weight = to_nhwc(delta), to_nhwc(weight)
+
+        if ix is None:
+            return to_nhwc(net), delta, weight
+
+        return to_nhwc(net), delta, weight, self.agg(net, ix, nseg)

@@ -1,0 +1,124 @@
+"""Top-level SLAM system API.
+
+Composition of the motion filter, frontend, backend and trajectory filler
+over the shared keyframe map: `track()` per frame, `terminate()` for the
+final trajectory (global-BA passes + trajectory fill).
+
+Monocular only in this package: stereo and RGB-D input, the convex
+disparity upsampling and the host-driven (non-fused) frontend raise
+NotImplementedError.
+"""
+
+import math
+
+import torch
+
+from ..config import SLAMConfig
+from ..lie import se3
+from ..models.convert import load_weights
+from ..models.droidnet import DroidNet
+from .backend import Backend
+from .fused import FusedFrontend
+from .motion_filter import MotionFilter
+from .state import DepthVideo
+from .trajectory_filler import TrajectoryFiller
+
+
+def resolve_device(device=None):
+    """`device`, defaulting to CUDA; raises when CUDA is asked for and no
+    card is present (pass device="cpu" to run on the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass device='cpu' to "
+                           "run on the CPU")
+    return dev
+
+
+def random_init(net, seed):
+    """Deterministic random weights: conv kernels ~ N(0, 2/fan_out),
+    biases 0 (the JAX package's initializer family), from an explicit
+    generator."""
+    g = torch.Generator().manual_seed(seed)
+    for m in net.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+            with torch.no_grad():
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                               * math.sqrt(2.0 / fan_out))
+                m.bias.zero_()
+    return net
+
+
+class Droid:
+    def __init__(self, config: SLAMConfig, weights_path=None, device=None,
+                 seed=0):
+        if config.stereo:
+            raise NotImplementedError("stereo input is not ported yet")
+        if config.upsample:
+            raise NotImplementedError("upsample=True is not ported yet")
+        if not config.fused:
+            raise NotImplementedError("only the fused frontend is ported")
+        self.cfg = config
+        self.device = resolve_device(device)
+        # full-f32 matmuls and convolutions (cuDNN would use TF32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+        net = DroidNet()
+        if weights_path is not None:
+            load_weights(net, weights_path)
+        else:
+            random_init(net, seed)
+        dtype = (torch.bfloat16 if config.compute_dtype == "bfloat16"
+                 else torch.float32)
+        self.net = net.to(device=self.device, dtype=dtype).eval()
+        self.net.requires_grad_(False)
+
+        self.video = DepthVideo(config, self.device)
+        self.filter = MotionFilter(self.net, self.video,
+                                   thresh=config.filter_thresh)
+        self.frontend = FusedFrontend(self.net, self.video, config)
+        self.backend = Backend(self.net, self.video, config)
+        self.traj_filler = TrajectoryFiller(self.net, self.video, config)
+
+    def prewarm(self, chunk_sizes=()):
+        """No-op: nothing is compiled ahead of time in this package."""
+
+    @torch.no_grad()
+    def track(self, tstamp, image, depth=None, intrinsics=None):
+        """Ingest one RGB frame (H, W, 3) uint8; returns True when it
+        passed the motion filter as a keyframe."""
+        if depth is not None:
+            raise NotImplementedError("RGB-D input is not ported yet")
+        if self.frontend.is_initialized:
+            return self.frontend.track_frame(tstamp, image, None, intrinsics)
+        is_kf = self.filter.track(tstamp, image, None, intrinsics)
+        self.frontend()
+        return is_kf
+
+    @torch.no_grad()
+    def track_batch(self, tstamps, images, intrinsics=None):
+        """A chunk of RGB frames; encoders run once over the chunk once the
+        frontend is initialized."""
+        if self.frontend.is_initialized:
+            self.frontend.track_frames(tstamps, images, intrinsics)
+        else:
+            for t, im in zip(tstamps, images):
+                self.track(t, im, intrinsics=intrinsics)
+
+    @torch.no_grad()
+    def terminate(self, stream=None, backend_steps=(7, 12)):
+        """Global optimization + trajectory fill.
+
+        Returns (n, 7) c2w poses [t, q] for every frame of `stream` (or the
+        keyframe poses if no stream is given), as numpy.
+        """
+        del self.frontend
+        for steps in backend_steps:
+            self.backend(steps)
+        if stream is not None:
+            traj_w2c = torch.as_tensor(self.traj_filler(stream),
+                                       device=self.device)
+        else:
+            traj_w2c = self.video.state.poses[: self.video.counter]
+        return se3.inv(traj_w2c).cpu().numpy()

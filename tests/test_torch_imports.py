@@ -1,0 +1,70 @@
+"""The PyTorch port stands alone: no module of droid_slam_tpu_torch/, not
+chip_smoke.py and not the port's tools (tools/torch_*.py) import jax,
+flax or the JAX package, and entry points default to the CUDA card."""
+
+import ast
+import glob
+import os.path as osp
+import subprocess
+import sys
+
+import pytest
+
+ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "droid_slam_tpu")
+
+
+def _package_files():
+    return sorted(glob.glob(osp.join(ROOT, "droid_slam_tpu_torch", "**",
+                                     "*.py"), recursive=True))
+
+
+def _scanned_files():
+    return (_package_files()
+            + sorted(glob.glob(osp.join(ROOT, "tools", "torch_*.py")))
+            + [osp.join(ROOT, "chip_smoke.py")])
+
+
+def _imported(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _scanned_files(),
+                         ids=lambda p: osp.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    for mod in _imported(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_fresh_import_loads_no_jax():
+    mods = sorted(
+        "droid_slam_tpu_torch." + osp.relpath(p, osp.join(
+            ROOT, "droid_slam_tpu_torch"))[:-3].replace(osp.sep, ".")
+        for p in _package_files() if not p.endswith("__init__.py"))
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_droid_defaults_to_cuda():
+    import torch
+
+    from droid_slam_tpu_torch.config import SLAMConfig
+    from droid_slam_tpu_torch.runtime.slam import Droid
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Droid(SLAMConfig(image_size=(32, 48), buffer=4))
