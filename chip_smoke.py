@@ -2,22 +2,37 @@
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernel of droid_slam_tpu_torch from csrc/ anew.
-2. Kernel phase: at the shapes of the 240×320 main path (64 edges, 4
-   pyramid levels, bf16 volumes, seeded coordinates: the identity grid
-   plus a small flow, as an update round gives them, with out-of-bounds
-   ones), holds each kernel against its plain PyTorch version on the card
-   (atol = rtol = 1e-5; both layouts of the lookup) and times the kernel,
-   the plain version and one PyTorch library call computing the same
-   function (CUDA events around back-to-back calls, median after
-   warm-up), and computes the kernel's bound (bytes or operations).
-3. Main-path phase: `Droid(SLAMConfig())` with the shipped weights tracks
-   80 frames of a synthetic textured-box sequence one by one and terminates
-   (global BA + trajectory fill); launch counts are reset just before and
-   read just after.  Prints keyframes, tracking rate, terminate time, ATE
-   after Sim(3) alignment (must stay under 10% of the path length),
-   peak device memory.
-4. Prints the card's name and power limit, one {"kernels": [...]} line,
+1. Builds the CUDA kernels of droid_slam_tpu_torch from csrc/ anew (one
+   nvcc per source, side by side).
+2. Kernel phases: holds each kernel against its plain PyTorch version on
+   the card (atol = rtol = 1e-5) and times the kernel, the plain version
+   and one PyTorch library call computing the same function (CUDA events
+   around back-to-back calls, median after warm-up), and computes the
+   kernel's bound (bytes or operations) from the run's coordinates.
+   Seeded coordinates: the identity grid plus a small flow, as an update
+   round gives them, with ~2% far out of bounds.
+   a. The serving lookup at the shapes of the 240×320 main path (64
+      edges, 4 pyramid levels, bf16 volumes, both layouts).
+   b. The training lookups (two forward schedules) and their backward at
+      the shapes of `TrainConfig()` (40 edge slots, 48×64 queries, 4
+      levels of an f32 pyramid); the backward also against
+      torch.autograd.grad through the plain forwards.
+3. Serving main path: `Droid(SLAMConfig())` with the shipped weights
+   tracks 80 frames of a synthetic textured-box sequence one by one and
+   terminates (global BA + trajectory fill); launch counts are reset just
+   before and read just after.  Prints keyframes, tracking rate,
+   terminate time, ATE after Sim(3) alignment (must stay under 10% of the
+   path length), peak device memory.
+4. Training main path at the full width of `TrainConfig()` (384×512, 7
+   frames, 15 iterations, 40 edge slots, f32): `train(...)` for a few
+   optimizer steps from a seeded initialisation on a small synthetic
+   curriculum, then timed accumulate/apply steps on one fixed batch under
+   both lookup schedules.  Launch counts are reset just before and read
+   just after.  Raises unless every loss and gradient norm is finite,
+   every training kernel was launched, and the shipped weights reach a
+   lower loss on the fixed batch than the seeded initialisation.  Prints
+   step time, peak memory and launches per step.
+5. Prints the card's name and power limit, one {"kernels": [...]} line,
    and as the last line {"ok": true, "device": {...}}.
 
 Any failed phase raises, so the script exits non-zero.  It needs a CUDA
@@ -28,6 +43,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -41,8 +57,11 @@ F32_FLOPS_PER_S = 67e12
 # y-blends, two products and one sum each
 LOOKUP_FLOPS_PER_QUERY = (8 * 7 + 49) * 3
 RADIUS = 3
-# frames of the main-path phase
+# frames of the serving main-path phase
 FRAMES = 80
+# the training main path: optimizer steps `train` takes, scenes it renders
+TRAIN_STEPS = 3
+TRAIN_SCENES = 3
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
@@ -108,7 +127,7 @@ def lookup_bytes(coords, h2, w2, elem):
     nx = ((x0[..., None] + offs >= 0) & (x0[..., None] + offs < w2)).sum(-1)
     ny = ((y0[..., None] + offs >= 0) & (y0[..., None] + offs < h2)).sum(-1)
     taps = int((nx * ny).sum())
-    q = coords.shape[0] * coords.shape[1]
+    q = coords.numel() // 2
     return taps * elem + q * 49 * 4 + q * 8
 
 
@@ -172,6 +191,225 @@ def kernel_phase(corr):
         torch.cuda.empty_cache()
     report["levels"] = levels
     return report
+
+
+def level_coords(rng, E, h, w, lvl):
+    """(1, E, h, w, 2) coordinates at level scale: identity grid plus a
+    2 px flow (level-0 units), ~2% of the queries far out of bounds."""
+    gy, gx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    grid = np.stack([gx, gy], -1)[None]
+    c = (grid + rng.normal(0.0, 2.0, (E, h, w, 2))) / 2 ** lvl
+    c[rng.random((E, h, w)) < 0.02] = -1e4
+    return torch.from_numpy(c.astype(np.float32)[None]).cuda()
+
+
+def level_kernel_phase(corr):
+    """The training lookups and their backward at TrainConfig() shapes."""
+    from droid_slam_tpu_torch.ops.corr import (
+        lookup_level_backward_cuda, lookup_level_backward_reference,
+        lookup_level_cuda, lookup_level_reference, lookup_level_v2_cuda,
+        lookup_level_v2_reference)
+
+    E, h, w = 40, 48, 64                       # 384x512 at 1/8
+    Q = E * h * w
+    rng = np.random.default_rng(1)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    volume = torch.randn((1, E, h, w, h, w), device="cuda", generator=gen)
+    pyramid = corr.build_pyramid(volume)
+    del volume
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms",
+            "max_abs_err")
+    names = ("lookup_level_fwd", "lookup_level_v2_fwd", "lookup_level_bwd")
+    report = {n: dict({k: 0.0 for k in keys}, levels=[]) for n in names}
+    report["lookup_level_bwd"]["autograd_max_abs_err"] = 0.0
+    forwards = {
+        "lookup_level_fwd": (lookup_level_cuda, lookup_level_reference),
+        "lookup_level_v2_fwd": (lookup_level_v2_cuda,
+                                lookup_level_v2_reference)}
+
+    def add(name, lvl, shape, ms, plain, lib, nbytes, ops, err):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_FLOPS_PER_S * 1e3
+        row = dict(level=lvl, shape=shape, ms=ms, plain_ms=plain,
+                   library_ms=lib, bound_ms=max(bytes_ms, ops_ms),
+                   bytes=nbytes, bytes_ms=bytes_ms, ops_ms=ops_ms)
+        rep = report[name]
+        rep["levels"].append(row)
+        for k in keys[:-1]:
+            rep[k] += row[k]
+        rep["max_abs_err"] = max(rep["max_abs_err"], err)
+
+    for lvl, vol in enumerate(pyramid):
+        h2, w2 = vol.shape[-2:]
+        coords = level_coords(rng, E, h, w, lvl)
+        g = torch.randn((1, E, h, w, 49), device="cuda", generator=gen)
+        planes = vol.reshape(Q, h2, w2)
+        cflat = coords.reshape(Q, 2)
+        shape = [E, h, w, h2, w2]
+
+        libms = cuda_time_ms(lambda: grid_sample_lookup(planes, cflat))
+        fwd_bytes = lookup_bytes(coords, h2, w2, vol.element_size())
+        for name, (kern, ref) in forwards.items():
+            got, want = kern(vol, coords), ref(vol, coords)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **TOL)
+            err = float((got - want).abs().max())
+            del got, want
+            add(name, lvl, shape, cuda_time_ms(lambda: kern(vol, coords)),
+                cuda_time_ms(lambda: ref(vol, coords), reps=3, batches=3),
+                libms, fwd_bytes, Q * LOOKUP_FLOPS_PER_QUERY, err)
+
+        # backward: against its plain version and against autograd through
+        # both plain forwards
+        got = lookup_level_backward_cuda(g, coords, h2, w2)
+        want = lookup_level_backward_reference(g, coords, h2, w2)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        err = float((got - want).abs().max())
+        del want
+        rep = report["lookup_level_bwd"]
+        for ref in (lookup_level_reference, lookup_level_v2_reference):
+            v = vol.detach().requires_grad_(True)
+            auto, = torch.autograd.grad(ref(v, coords), v, g)
+            torch.testing.assert_close(got, auto, atol=1e-5, rtol=1e-4)
+            rep["autograd_max_abs_err"] = max(
+                rep["autograd_max_abs_err"], float((got - auto).abs().max()))
+            del v, auto
+        del got
+        # the library's gradient: autograd through grid_sample
+        pl = planes.detach().requires_grad_(True)
+        lib_out = grid_sample_lookup(pl, cflat)
+        gflat = g.reshape(Q, 49)
+        lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+            lib_out, pl, gflat, retain_graph=True), reps=3, batches=3)
+        del lib_out, pl
+        # least bytes of the dense gradient: written once, plus the tap
+        # gradients and coordinates read once; 4 products and 3 sums per
+        # window element
+        bwd_bytes = Q * h2 * w2 * 4 + Q * 49 * 4 + Q * 8
+        add("lookup_level_bwd", lvl, shape,
+            cuda_time_ms(lambda: lookup_level_backward_cuda(g, coords, h2,
+                                                            w2)),
+            cuda_time_ms(lambda: lookup_level_backward_reference(
+                g, coords, h2, w2), reps=3, batches=3),
+            lib_bwd, bwd_bytes, Q * 64 * 7, err)
+        torch.cuda.empty_cache()
+    return report
+
+
+def training_phase(corr):
+    """`train` and timed steps at the full width of TrainConfig()."""
+    from droid_slam_tpu_torch.config import TrainConfig
+    from droid_slam_tpu_torch.data.synthetic import SyntheticCurriculum
+    from droid_slam_tpu_torch.geom.graph_utils import temporal_graph
+    from droid_slam_tpu_torch.models.convert import load_weights
+    from droid_slam_tpu_torch.training import train_step as tts
+    from droid_slam_tpu_torch.training.trainer import (edge_capacity,
+                                                       make_batch, train)
+
+    t = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = TrainConfig(ckpt_dir=os.path.join(tmp, "ckpt"),
+                          name="chip_smoke")
+        H, W = cfg.image_size
+        N = cfg.n_frames
+        dataset = SyntheticCurriculum(cfg, n_scenes=TRAIN_SCENES)
+        print(f"curriculum: {TRAIN_SCENES} scenes {H}x{W} rendered in "
+              f"{time.time() - t:.1f} s", flush=True)
+
+        torch.cuda.synchronize()
+        corr.reset_launch_counts()
+        t = time.time()
+        state = train(cfg, dataset, max_steps=TRAIN_STEPS, seed=0,
+                      log_every=1, log_dir=os.path.join(tmp, "runs"),
+                      lookup_impl="level")
+        torch.cuda.synchronize()
+        t_train = time.time() - t
+        with open(os.path.join(tmp, "runs", cfg.name,
+                               "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f if line.strip()]
+    launches_train = corr.launch_counts()
+    if state.step != TRAIN_STEPS or not logged:
+        raise RuntimeError(f"train took {state.step} steps, logged "
+                           f"{len(logged)} records")
+    # the logger averages every step's metrics: a non-finite step shows
+    for rec in logged:
+        bad = {k: v for k, v in rec.items() if not np.isfinite(v)}
+        if bad:
+            raise RuntimeError(f"non-finite training metrics: {bad}")
+
+    # timed steps on one fixed batch, both lookup schedules
+    batch_np = next(dataset.sample_batches(
+        cfg.batch, rng=np.random.default_rng(7)))
+    cap = edge_capacity(cfg)
+    batch = make_batch(batch_np, *temporal_graph(N, r=2), cap, "cuda")
+    h8, w8 = batch["disps"].shape[-2:]
+    Gs0 = torch.zeros((cfg.batch, N, 7), device="cuda")
+    disp0 = torch.zeros((cfg.batch, N, h8, w8), device="cuda")
+    seeded = tts.create_train_state(cfg, seed=0, device="cuda")
+    shipped = tts.create_train_state(cfg, seed=0, device="cuda")
+    load_weights(shipped.net, "weights/droid_synth.npz")
+
+    def timed_step(state, impl, remat=False, apply=True):
+        corr.set_lookup_impl(impl)
+        accum, apply_g = tts.make_train_step(
+            iters=cfg.iters, fix_scale=cfg.fix_scale, remat=remat)
+        before = corr.launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        grads, m = accum(tts.zero_grads(state.net), state.net, batch, Gs0,
+                         disp0)
+        torch.cuda.synchronize()
+        t_accum = time.time() - t0
+        if apply:
+            m.update(apply_g(state, grads))
+        else:
+            m["grad_norm"] = tts.global_norm(grads.values())
+        torch.cuda.synchronize()
+        after = corr.launch_counts()
+        out = dict(impl=impl, remat=remat, loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]),
+                   grad_nonfinite_frac=float(m["grad_nonfinite_frac"]),
+                   accum_s=t_accum, step_s=time.time() - t0,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   launches={k: after[k] - before[k] for k in after})
+        if not (np.isfinite(out["loss"]) and np.isfinite(out["grad_norm"])):
+            raise RuntimeError(f"non-finite training step: {out}")
+        print("train step: " + json.dumps(out), flush=True)
+        return out
+
+    try:
+        steps = [timed_step(seeded, "level"),            # warm-up
+                 timed_step(seeded, "level"),
+                 timed_step(seeded, "level_v2"),
+                 timed_step(seeded, "level", remat=True)]
+        fresh = tts.create_train_state(cfg, seed=0, device="cuda")
+        loss_seeded = timed_step(fresh, "level_v2", apply=False)["loss"]
+        loss_shipped = timed_step(shipped, "level_v2", apply=False)["loss"]
+    finally:
+        corr.set_lookup_impl("level")
+    launches = corr.launch_counts()
+    if not loss_shipped < loss_seeded:
+        raise RuntimeError(f"shipped weights' loss {loss_shipped} is not "
+                           f"below the seeded initialisation's "
+                           f"{loss_seeded}")
+    for name in ("lookup_level_fwd", "lookup_level_v2_fwd",
+                 "lookup_level_bwd"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"the training path never launched {name}")
+    out = dict(train_steps=TRAIN_STEPS, train_s=t_train,
+               launches_train=launches_train, logged=logged,
+               step_s_level=steps[1]["step_s"],
+               step_s_level_v2=steps[2]["step_s"],
+               step_s_level_remat=steps[3]["step_s"],
+               peak_mem_bytes=steps[1]["peak_mem_bytes"],
+               peak_mem_bytes_remat=steps[3]["peak_mem_bytes"],
+               launches_per_step=steps[1]["launches"],
+               loss_seeded=loss_seeded, loss_shipped=loss_shipped,
+               launches=launches)
+    print("training path: " + json.dumps(out), flush=True)
+    return out
 
 
 def umeyama_ate(est, gt):
@@ -252,22 +490,29 @@ def main():
         return 1
 
     from droid_slam_tpu_torch.ops import corr
-    from droid_slam_tpu_torch.ops.cuda_build import BUILD_LOG, load
+    from droid_slam_tpu_torch.ops.cuda_build import BUILD_LOG, build_all
 
     card = card_line()
     print(f"card: {card}", flush=True)
     t = time.time()
-    load("corr_lookup", force=True)
-    print(f"kernel build: {time.time() - t:.1f} s", flush=True)
-    print(f"--- nvcc corr_lookup ---\n{BUILD_LOG['corr_lookup'].strip()}",
+    built = build_all(force=True)
+    print(f"kernel build ({', '.join(built)}): {time.time() - t:.1f} s",
           flush=True)
+    for name in built:
+        print(f"--- nvcc {name} ---\n{BUILD_LOG[name].strip()}", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kern = kernel_phase(corr)
     print("kernel phase: " + json.dumps(kern), flush=True)
+    level = level_kernel_phase(corr)
+    print("level kernel phase: " + json.dumps(level), flush=True)
 
     main = main_path_phase(corr, FRAMES)
+    training = training_phase(corr)
+
+    def bound_by(rep):
+        return "bytes" if rep["bytes_ms"] >= rep["ops_ms"] else "operations"
 
     kernels = [dict(
         name="corr_lookup", route="cuda",
@@ -275,16 +520,32 @@ def main():
         replaces="droid_slam_tpu/ops/corr_pallas.py:333 "
                  "(lookup_flat_pallas_v3)",
         launches=main["lookup_launches"],
-        launches_main_path=main["lookup_launches"],
         max_abs_err=kern["max_abs_err"],
-        ms=kern["ms"], kernel_ms=kern["ms"], plain_ms=kern["plain_ms"],
-        bound_ms=kern["bound_ms"],
-        bound_by="bytes" if kern["bytes_ms"] >= kern["ops_ms"]
-        else "operations",
+        ms=kern["ms"], plain_ms=kern["plain_ms"],
+        bound_ms=kern["bound_ms"], bound_by=bound_by(kern),
         library_ms=kern["library_ms"],
         note="ms per 4-level pyramid lookup of 64 edges at 240x320, "
              "identity grid plus a small flow",
     )]
+    replaces = {
+        "lookup_level_fwd": "droid_slam_tpu/ops/corr_pallas.py:83 "
+                            "(lookup_level_pallas)",
+        "lookup_level_v2_fwd": "droid_slam_tpu/ops/corr_pallas.py:199 "
+                               "(lookup_level_pallas_v2)",
+        "lookup_level_bwd": "droid_slam_tpu/ops/corr.py:125 (gradient of "
+                            "lookup_level, which JAX differentiates; no "
+                            "Pallas kernel)"}
+    for name, rep in level.items():
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="droid_slam_tpu_torch/csrc/corr_lookup_level.cu",
+            replaces=replaces[name], launches=training["launches"][name],
+            max_abs_err=rep["max_abs_err"], ms=rep["ms"],
+            plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+            bound_by=bound_by(rep), library_ms=rep["library_ms"],
+            note="ms per 4-level pyramid of 40 edge slots at 384x512 "
+                 "(f32), identity grid plus a small flow",
+        ))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

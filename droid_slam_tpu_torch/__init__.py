@@ -1,8 +1,9 @@
 """droid_slam_tpu_torch — the PyTorch/CUDA port of droid_slam_tpu.
 
 Monocular deep visual SLAM (recurrent update operator, correlation-
-pyramid lookups, dense Gauss-Newton bundle adjustment) on PyTorch, with
-hand-written CUDA kernels for Hopper (csrc/).  The JAX package beside it
+pyramid lookups, dense Gauss-Newton bundle adjustment) and the training
+of its network (training/, train.py) on PyTorch, with hand-written CUDA
+kernels for Hopper (csrc/).  The JAX package beside it
 is the reference this package is tested against; nothing here imports it.
 
 Entry points run on the CUDA card unless the caller passes

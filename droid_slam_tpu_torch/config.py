@@ -1,4 +1,4 @@
-"""Configuration for the SLAM runtime.
+"""Configuration for the SLAM runtime and for training.
 
 The fields and presets of the JAX package's `SLAMConfig`, less the ones
 only its runtime reads: `lookup_impl` (the port has no implementation
@@ -99,3 +99,24 @@ PRESETS = {
     ),
     "demo": SLAMConfig(),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters: the JAX package's `TrainConfig`, less the
+    fields nothing in this package reads (`fmin`, `fmax`, `noise`, `scale`
+    of the TartanAir reader and its augmentation, `world_size`)."""
+
+    lr: float = 2.5e-4
+    steps: int = 250000
+    batch: int = 1
+    iters: int = 15                 # unrolled update steps
+    clip: float = 2.5
+    n_frames: int = 7
+    edges: int = 24
+    restart_prob: float = 0.2
+    ckpt_every: int = 10000
+    image_size: Tuple[int, int] = (384, 512)
+    fix_scale: bool = True
+    ckpt_dir: str = "checkpoints"
+    name: str = "droid_torch"

@@ -1,0 +1,299 @@
+// Windowed bilinear lookup on contiguous pyramid levels, and its gradient,
+// for Hopper (sm_90a): the kernels of the training path.
+//
+// A level is (Q, h2, w2), query-major: query q owns the contiguous plane
+// vol[q].  For every query the lookup samples a (2r+1)^2 = 49-tap window
+// (r = 3) of its plane at the float position coords[q] = [x, y]: bilinear,
+// zero contribution from outside the plane, channels x-offset major
+// (out[q, ox * 7 + oy]).
+//
+// Three kernels:
+//   lookup_level_fwd     replaces the TPU kernel droid_slam_tpu/ops/
+//                        corr_pallas.py: lookup_level_pallas (body
+//                        _lookup_kernel): 8x8 window, four-corner combine.
+//   lookup_level_v2_fwd  replaces lookup_level_pallas_v2 (body
+//                        _lookup_kernel_v2): window rows blended along x,
+//                        then neighbouring rows blended along y.
+//   lookup_level_bwd     the gradient of either forward with respect to the
+//                        volume (the TPU package differentiates its jnp
+//                        lookup; there is no TPU kernel for it).
+//
+// The TPU kernels zero-pad every plane to (8, 128) tiles and bring the
+// window to the origin with dynamic rotates, because a TPU cannot slice a
+// lane dimension at a traced offset.  None of that is carried over: these
+// kernels check bounds per element and read the window where it lies.  A
+// window row is 8 adjacent floats (one 32-byte sector when aligned).
+//
+// Each kernel keeps the operation order of its plain PyTorch version
+// (ops/corr.py: lookup_level_reference, lookup_level_v2_reference,
+// lookup_level_backward_reference) and uses the _rn intrinsics so that nvcc
+// contracts nothing into FMAs.
+//
+// Schedules.
+//   fwd:  one warp per query.  Lane l loads window elements (row l / 4,
+//         columns 2 (l % 4), +1) into shared memory; then lanes take taps
+//         l and l + 32 and the warp writes the 49 taps as one contiguous
+//         run.
+//   v2:   eight lanes per query, four queries a warp.  Lane k of a query
+//         loads window row k (8 floats), blends it along x in registers,
+//         takes row k + 1's blend by __shfl_down_sync and blends along y.
+//         Taps go through shared memory so the warp writes its four
+//         queries' 196 floats contiguously.
+//   bwd:  one warp per query.  The 49 tap gradients are staged in shared
+//         memory with a zero border; window element (a, b) gathers the (at
+//         most four) tap gradients it fed, with their bilinear weights.  A
+//         query owns its plane, so there are no atomics and the result is
+//         deterministic.  The caller zero-fills the gradient; the kernel
+//         writes only in-bounds window elements.
+//
+// Bound on the H100 (3.35 TB/s): bytes.  Forward, per query: at most 64
+// window elements (256 B of f32), 196 B of taps, 8 B of coordinates; at
+// level 0 of the training shapes (Q = 40 * 48 * 64) about 56.5 MB, 17 us.
+// Backward: the dense gradient itself, Q * h2 * w2 * 4 B, written once
+// (1.51 GB, 0.45 ms at level 0): the zero fill dominates, the kernel's own
+// traffic is that of a forward.  Offsets are 64-bit: a level-0 volume at
+// batch 4 passes 2^31 bytes.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kRadius = 3;
+constexpr int kDiam = 2 * kRadius + 1;   // 7 taps per axis
+constexpr int kWin = kDiam + 1;          // 8 integer rows/cols
+constexpr int kTaps = kDiam * kDiam;     // 49
+constexpr int kWarps = 8;                // warps per block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kQueriesV2 = 4;            // queries per warp in the v2 kernel
+
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+// integer window origin and bilinear weights of one query
+struct Query {
+  int x0, y0;
+  float dx, dy, omx, omy;
+};
+
+__device__ __forceinline__ Query read_query(const float* __restrict__ coords,
+                                            int64_t q) {
+  Query s;
+  const float cx = coords[2 * q];
+  const float cy = coords[2 * q + 1];
+  const float x0f = floorf(cx);
+  const float y0f = floorf(cy);
+  s.dx = __fsub_rn(cx, x0f);
+  s.dy = __fsub_rn(cy, y0f);
+  s.omx = __fsub_rn(1.0f, s.dx);
+  s.omy = __fsub_rn(1.0f, s.dy);
+  // clamp before the int cast (far-out windows match nothing anyway)
+  s.x0 = (int)fminf(fmaxf(x0f, -2e4f), 2e4f);
+  s.y0 = (int)fminf(fmaxf(y0f, -2e4f), 2e4f);
+  return s;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lookup_level_fwd_kernel(const T* __restrict__ vol,
+                        const float* __restrict__ coords,
+                        float* __restrict__ out, int64_t Q, int h2, int w2) {
+  __shared__ float patch[kWarps][kWin][kWin + 1];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t q = (int64_t)blockIdx.x * kWarps + warp;
+  if (q >= Q) return;   // the whole warp leaves; only warp-level syncs below
+  const Query s = read_query(coords, q);
+  const T* plane = vol + q * ((int64_t)h2 * w2);
+
+  const int row = lane >> 2;
+  const int col = (lane & 3) * 2;
+  const int y = s.y0 - kRadius + row;
+  const bool row_ok = (y >= 0) && (y < h2);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int x = s.x0 - kRadius + col + j;
+    patch[warp][row][col + j] =
+        (row_ok && x >= 0 && x < w2) ? load_f32(plane + (int64_t)y * w2 + x)
+                                     : 0.0f;
+  }
+  __syncwarp();
+
+  const float w00 = __fmul_rn(s.omx, s.omy);
+  const float w10 = __fmul_rn(s.dx, s.omy);
+  const float w01 = __fmul_rn(s.omx, s.dy);
+  const float w11 = __fmul_rn(s.dx, s.dy);
+  float* o = out + q * kTaps;
+  for (int t = lane; t < kTaps; t += 32) {
+    const int ox = t / kDiam;
+    const int oy = t - ox * kDiam;
+    float v = __fmul_rn(w00, patch[warp][oy][ox]);
+    v = __fadd_rn(v, __fmul_rn(w10, patch[warp][oy][ox + 1]));
+    v = __fadd_rn(v, __fmul_rn(w01, patch[warp][oy + 1][ox]));
+    v = __fadd_rn(v, __fmul_rn(w11, patch[warp][oy + 1][ox + 1]));
+    o[t] = v;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lookup_level_v2_fwd_kernel(const T* __restrict__ vol,
+                           const float* __restrict__ coords,
+                           float* __restrict__ out, int64_t Q, int h2,
+                           int w2) {
+  __shared__ float stage[kWarps][kQueriesV2 * kTaps];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane >> 3;   // query of the warp
+  const int k = lane & 7;      // window row of the query
+  const int64_t q0 = ((int64_t)blockIdx.x * kWarps + warp) * kQueriesV2;
+  if (q0 >= Q) return;         // the whole warp leaves
+  const int64_t q = q0 + sub;
+
+  // every lane stays for the shuffles; lanes past the last query carry 0
+  float tx[kDiam];
+#pragma unroll
+  for (int c = 0; c < kDiam; ++c) tx[c] = 0.0f;
+  float dy = 0.0f, omy = 0.0f;
+  if (q < Q) {
+    const Query s = read_query(coords, q);
+    dy = s.dy;
+    omy = s.omy;
+    const T* plane = vol + q * ((int64_t)h2 * w2);
+    const int y = s.y0 - kRadius + k;
+    const bool row_ok = (y >= 0) && (y < h2);
+    float r[kWin];
+#pragma unroll
+    for (int c = 0; c < kWin; ++c) {
+      const int x = s.x0 - kRadius + c;
+      r[c] = (row_ok && x >= 0 && x < w2)
+                 ? load_f32(plane + (int64_t)y * w2 + x)
+                 : 0.0f;
+    }
+#pragma unroll
+    for (int c = 0; c < kDiam; ++c) {
+      tx[c] = __fadd_rn(__fmul_rn(s.omx, r[c]), __fmul_rn(s.dx, r[c + 1]));
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kDiam; ++c) {
+    const float below = __shfl_down_sync(0xffffffffu, tx[c], 1, 8);
+    if (k < kDiam) {
+      stage[warp][sub * kTaps + c * kDiam + k] =
+          __fadd_rn(__fmul_rn(omy, tx[c]), __fmul_rn(dy, below));
+    }
+  }
+  __syncwarp();
+
+  const int64_t left = Q - q0;
+  const int n = (int)(left < kQueriesV2 ? left : kQueriesV2) * kTaps;
+  float* o = out + q0 * kTaps;
+  for (int i = lane; i < n; i += 32) o[i] = stage[warp][i];
+}
+
+__global__ void __launch_bounds__(kThreads)
+lookup_level_bwd_kernel(const float* __restrict__ grad_taps,
+                        const float* __restrict__ coords,
+                        float* __restrict__ grad_vol, int64_t Q, int h2,
+                        int w2) {
+  // g[oy + 1][ox + 1] = gradient of tap (ox, oy); a zero border all round
+  __shared__ float g[kWarps][kWin + 1][kWin + 1];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t q = (int64_t)blockIdx.x * kWarps + warp;
+  if (q >= Q) return;   // the whole warp leaves; only warp-level syncs below
+  float* gw = &g[warp][0][0];
+  for (int i = lane; i < (kWin + 1) * (kWin + 1); i += 32) gw[i] = 0.0f;
+  __syncwarp();
+  const float* gt = grad_taps + q * kTaps;
+  for (int t = lane; t < kTaps; t += 32) {
+    const int ox = t / kDiam;
+    const int oy = t - ox * kDiam;
+    g[warp][oy + 1][ox + 1] = gt[t];
+  }
+  __syncwarp();
+
+  const Query s = read_query(coords, q);
+  const float w00 = __fmul_rn(s.omx, s.omy);
+  const float w10 = __fmul_rn(s.dx, s.omy);
+  const float w01 = __fmul_rn(s.omx, s.dy);
+  const float w11 = __fmul_rn(s.dx, s.dy);
+  const int row = lane >> 2;
+  const int col = (lane & 3) * 2;
+  const int y = s.y0 - kRadius + row;
+  if (y < 0 || y >= h2) return;
+  float* plane = grad_vol + q * ((int64_t)h2 * w2) + (int64_t)y * w2;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int b = col + j;
+    const int x = s.x0 - kRadius + b;
+    if (x < 0 || x >= w2) continue;
+    float v = __fmul_rn(w00, g[warp][row + 1][b + 1]);
+    v = __fadd_rn(v, __fmul_rn(w10, g[warp][row + 1][b]));
+    v = __fadd_rn(v, __fmul_rn(w01, g[warp][row][b + 1]));
+    v = __fadd_rn(v, __fmul_rn(w11, g[warp][row][b]));
+    plane[x] = v;
+  }
+}
+
+inline unsigned blocks_for(int64_t warps) {
+  return (unsigned)((warps + kWarps - 1) / kWarps);
+}
+
+}  // namespace
+
+// vol: Q contiguous (h2, w2) planes; dtype 0 = float32, 1 = bfloat16.
+// coords (Q, 2) and out (Q, 49) are contiguous float32.  Each function
+// launches on `stream` and returns cudaGetLastError() (0 on success).
+
+extern "C" int lookup_level_fwd(const void* vol, int dtype,
+                                const float* coords, float* out, int64_t Q,
+                                int h2, int w2, void* stream) {
+  if (Q == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = blocks_for(Q);
+  if (dtype == 0) {
+    lookup_level_fwd_kernel<float><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(vol), coords, out, Q, h2, w2);
+  } else if (dtype == 1) {
+    lookup_level_fwd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(vol), coords, out, Q, h2, w2);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lookup_level_v2_fwd(const void* vol, int dtype,
+                                   const float* coords, float* out,
+                                   int64_t Q, int h2, int w2, void* stream) {
+  if (Q == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = blocks_for((Q + kQueriesV2 - 1) / kQueriesV2);
+  if (dtype == 0) {
+    lookup_level_v2_fwd_kernel<float><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(vol), coords, out, Q, h2, w2);
+  } else if (dtype == 1) {
+    lookup_level_v2_fwd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(vol), coords, out, Q, h2, w2);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// grad_taps (Q, 49), coords (Q, 2) and grad_vol (Q, h2, w2) are contiguous
+// float32; grad_vol must arrive zeroed.
+extern "C" int lookup_level_bwd(const float* grad_taps, const float* coords,
+                                float* grad_vol, int64_t Q, int h2, int w2,
+                                void* stream) {
+  if (Q == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  lookup_level_bwd_kernel<<<blocks_for(Q), kThreads, 0, s>>>(
+      grad_taps, coords, grad_vol, Q, h2, w2);
+  return (int)cudaGetLastError();
+}

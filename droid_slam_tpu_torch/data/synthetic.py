@@ -1,11 +1,14 @@
-"""Synthetic textured-box scenes with exact ground truth (numpy + torch).
+"""Synthetic textured scenes with exact ground truth (numpy + torch).
 
-A camera random-walks inside a textured box looking toward +z; depth maps
-and poses are analytic (nearest ray/plane intersection).  The same scene
-generator as the JAX package's `data/synthetic.render_box_scene`, with
-the image resampling written out in numpy: bilinear upsampling for the
-noise octaves and bilinear texture lookup with wrap-around coordinates
-(quantized to 1/32 pixel, as OpenCV's remap does).
+`render_box_scene`: a camera random-walks inside a textured box looking
+toward +z.  `render_plane_scene`: a camera moves in front of a textured,
+optionally slanted plane.  Depth maps and poses are analytic (ray/plane
+intersections).  The same scene generators as the JAX package's
+`data/synthetic`, with the image resampling written out in numpy:
+bilinear upsampling for the noise octaves and bilinear texture lookup
+with wrap-around coordinates (quantized to 1/32 pixel, as OpenCV's remap
+does).  `SyntheticCurriculum` mixes both families into the dataset-free
+training source.
 """
 
 import numpy as np
@@ -139,3 +142,158 @@ def render_box_scene(n_frames=12, H=96, W=128, seed=0, motion_scale=0.08,
         images=np.stack(images), poses_c2w=poses_c2w.astype(np.float32),
         depths=np.stack(depths), intrinsics=np.tile(intr, (n_frames, 1)),
     )
+
+
+def render_plane_scene(n_frames=12, H=96, W=128, plane_z=2.0, seed=0,
+                       motion_scale=0.04, focal=0.9, tilt=0.0):
+    """Render a camera trajectory viewing a textured plane.
+
+    The plane passes through (0, 0, plane_z); `tilt` (radians) rotates its
+    normal away from -z about a random in-plane axis, giving slanted
+    geometry with real depth gradients.  `focal` sets fx = fy = focal·W.
+    Returns the same dict layout as `render_box_scene`.
+    """
+    rng = np.random.default_rng(seed)
+    tex = _texture(rng)
+    tex_size = tex.shape[0]
+    fx = fy = focal * W
+    cx, cy = W / 2, H / 2
+    intr = np.array([fx, fy, cx, cy], np.float32)
+
+    # plane frame: unit normal (towards the camera) + in-plane basis
+    if tilt != 0.0:
+        phi = rng.uniform(0, 2 * np.pi)
+        axis = np.array([np.cos(phi), np.sin(phi), 0.0])
+        nz = np.array([0.0, 0.0, -1.0])
+        normal = (nz * np.cos(tilt) + np.cross(axis, nz) * np.sin(tilt)
+                  + axis * np.dot(axis, nz) * (1 - np.cos(tilt)))
+    else:
+        normal = np.array([0.0, 0.0, -1.0])
+    normal = normal / np.linalg.norm(normal)
+    e1 = np.cross(normal, [0.0, 1.0, 0.0])
+    e1 /= np.linalg.norm(e1)
+    e2 = np.cross(normal, e1)
+    p0 = np.array([0.0, 0.0, plane_z])
+
+    # smooth random walk (c2w): mostly lateral translation, small rotation
+    steps = motion_scale * rng.standard_normal((n_frames, 6))
+    steps[:, 2] *= 0.3
+    steps[:, 3:] *= 0.3
+    steps[0] = 0
+    xi = np.cumsum(steps, axis=0)
+    poses_c2w = se3.exp(torch.from_numpy(xi.astype(np.float32))).numpy()
+
+    w2t = tex_size / 4.0     # 1 world unit = tex_size/4 px, centered
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    dirs = np.stack([(xs - cx) / fx, (ys - cy) / fy, np.ones_like(xs)],
+                    axis=-1)
+    dirs_t = torch.from_numpy(dirs.reshape(-1, 3))
+
+    images, depths = [], []
+    for n in range(n_frames):
+        g = poses_c2w[n]
+        Rd = so3.act(torch.from_numpy(g[3:7]), dirs_t).numpy().reshape(
+            H, W, 3)
+        o = g[:3]
+        denom = Rd @ normal
+        t = ((p0 - o) @ normal) / np.where(np.abs(denom) < 1e-6, 1e-6, denom)
+        t = np.clip(t, 0.05, 100.0)
+        pw = o + t[..., None] * Rd
+        # dirs has camera-z component 1, so the camera z-depth of the
+        # intersection is exactly the ray parameter t
+        rel = pw - p0
+        u = (rel @ e1) * w2t + tex_size / 2
+        v = (rel @ e2) * w2t + tex_size / 2
+        img = _sample_wrap(tex, u.astype(np.float32), v.astype(np.float32))
+        images.append(np.clip(img, 0, 255).astype(np.uint8))
+        depths.append(t.astype(np.float32))
+
+    return dict(
+        images=np.stack(images), poses_c2w=poses_c2w.astype(np.float32),
+        depths=np.stack(depths), intrinsics=np.tile(intr, (n_frames, 1)),
+    )
+
+
+class SyntheticCurriculum:
+    """Dataset-free training source: rendered box interiors (plain, with
+    floating occluders, corridors) and textured planes (fronto-parallel
+    and slanted) across a range of motion scales and focal lengths.
+
+    Scene seeds start at 1000, apart from the seeds evaluation uses.
+    Sequences are longer than the training window, so a scene gives many
+    window starts.
+    """
+
+    def __init__(self, cfg, n_scenes=96):
+        self.cfg = cfg
+        H, W = cfg.image_size
+        T = max(16, cfg.n_frames + 2)
+        self.scenes = [self._render(s, T, H, W) for s in range(n_scenes)]
+
+    @staticmethod
+    def _render(s, T, H, W):
+        seed = 1000 + s
+        motion = [0.04, 0.08, 0.12, 0.16, 0.20][s % 5]
+        focal = [0.75, 0.9, 1.1][s % 3]
+        common = dict(seed=seed, motion_scale=motion, focal=focal)
+        fam = s % 6
+        if fam <= 1:            # plain box interiors
+            return render_box_scene(
+                T, H, W, **common,
+                box=(2.0 + (s % 5) * 0.4, 1.5 + (s % 3) * 0.3, 5.0 + (s % 4)))
+        if fam == 2:            # box + floating occluders
+            return render_box_scene(
+                T, H, W, **common, n_obstacles=1 + (s % 3),
+                box=(2.2 + (s % 4) * 0.4, 1.6 + (s % 2) * 0.3, 5.0 + (s % 3)))
+        if fam == 3:            # corridor: narrow, deep box
+            return render_box_scene(
+                T, H, W, **common,
+                box=(1.0 + (s % 2) * 0.3, 1.1, 8.0 + 2 * (s % 3)))
+        if fam == 4:            # fronto-parallel plane
+            return render_plane_scene(T, H, W, **common)
+        return render_plane_scene(T, H, W, **common,   # slanted plane
+                                  tilt=0.3 + 0.2 * (s % 2))
+
+    def sample_batches(self, batch_size, rng):
+        """Endless batches dict(images (B,N,H,W,3) f32, poses (B,N,7) c2w,
+        disps (B,N,H,W), intrinsics (B,N,4)) drawn with `rng`."""
+        N = self.cfg.n_frames
+        H, W = self.cfg.image_size
+        # scale diversity: a share of batches are random 8-aligned crops
+        # at the next size down
+        ch, cw = max(64, H - 32), max(96, W - 32)
+        do_crop = (ch, cw) != (H, W)
+        while True:
+            crop = do_crop and rng.random() < 0.4
+            if crop:
+                y0 = 8 * rng.integers(0, (H - ch) // 8 + 1)
+                x0 = 8 * rng.integers(0, (W - cw) // 8 + 1)
+            items = []
+            for _ in range(batch_size):
+                sc = self.scenes[rng.integers(len(self.scenes))]
+                s0 = rng.integers(sc["images"].shape[0] - N + 1)
+                img = sc["images"][s0:s0 + N].astype(np.float32)
+                dsp = (1.0 / sc["depths"][s0:s0 + N]).astype(np.float32)
+                intr = sc["intrinsics"][s0:s0 + N].copy()
+                if crop:
+                    img = img[:, y0:y0 + ch, x0:x0 + cw]
+                    dsp = dsp[:, y0:y0 + ch, x0:x0 + cw]
+                    intr[:, 2] -= x0
+                    intr[:, 3] -= y0
+                # photometric jitter: per-sequence brightness, contrast
+                # and gamma, per-frame sensor noise; geometry untouched
+                gain = rng.uniform(0.7, 1.3)
+                bias = rng.uniform(-20, 20)
+                gamma = rng.uniform(0.85, 1.2)
+                img = 255.0 * (np.clip(img / 255.0, 0, 1) ** gamma)
+                img = img * gain + bias
+                img = img + rng.normal(0, rng.uniform(0, 4),
+                                       img.shape).astype(np.float32)
+                img = np.clip(img, 0, 255)
+                items.append(dict(images=img,
+                                  poses=sc["poses_c2w"][s0:s0 + N],
+                                  disps=dsp, intrinsics=intr))
+            yield {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+    def __len__(self):
+        return len(self.scenes)

@@ -143,8 +143,17 @@ def projective_transform(poses, depths, intrinsics, ii, jj, jacobian=False,
     Jj = _matmul_small(Jp, Ja)                     # (B,E,H,W,2,6)
     Ji = -se3.adjT(Gij[..., None, None, None, :], Jj)
     # depth Jacobian: G acting on [0,0,0,1] is [t, 1]; project through Jp
-    e4 = torch.zeros_like(X0)
-    e4[..., 3] = 1.0
+    e4 = torch.cat([torch.zeros_like(X0[..., :3]),
+                    torch.ones_like(X0[..., 3:4])], dim=-1)
     Jz_pt = se3.act(Gij[..., None, None, :], e4)
     Jz = _matmul_small(Jp, Jz_pt[..., None])       # (B,E,H,W,2,1)
     return x1, valid, (Ji, Jj, Jz)
+
+
+def induced_flow(poses, disps, intrinsics, ii, jj):
+    """Optical flow induced by camera motion: (B, E, H, W, 2) and the
+    validity mask."""
+    ht, wd = disps.shape[-2:]
+    coords0 = coords_grid(ht, wd, device=disps.device, dtype=disps.dtype)
+    coords1, valid = projective_transform(poses, disps, intrinsics, ii, jj)
+    return coords1[..., :2] - coords0, valid

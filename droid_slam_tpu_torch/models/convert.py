@@ -2,8 +2,12 @@
 
 The checkpoint is a tree of numpy arrays keyed like the flax param tree
 (`fnet/layer1_0/conv1/kernel`, ...).  The torch modules use the same
-names, so the mapping is mechanical: `kernel` (HWIO) becomes `weight`
-(OIHW) and `bias` stays `bias`.
+names, so the mapping is mechanical in both directions: `kernel` (HWIO)
+becomes `weight` (OIHW) and `bias` stays `bias`.  The flax tree declares
+the delta/weight heads unfused (`delta_0`, `weight_0`, `delta_2`,
+`weight_2`; the JAX package only fuses their kernels at run time), as the
+torch modules do, so parameters and gradients of those heads map back
+one to one.
 """
 
 import numpy as np
@@ -58,3 +62,33 @@ def load_weights(net, path):
     net.load_state_dict(params_from_flax(load_npz_weights(path)),
                         strict=True)
     return net
+
+
+def params_to_flax(named):
+    """The inverse of `params_from_flax`: a mapping of torch names
+    (`net.state_dict()`, or gradients keyed like `named_parameters()`) to
+    tensors -> {"params": flax-layout tree of float32 numpy arrays}."""
+    tree = {}
+    for name, ten in named.items():
+        *mod, leaf = name.split(".")
+        arr = ten.detach().float().cpu().numpy()
+        node = tree
+        for p in mod:
+            node = node.setdefault(p, {})
+        if leaf == "weight":
+            node["kernel"] = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        elif leaf == "bias":
+            node["bias"] = arr.copy()
+        else:
+            raise KeyError(f"unexpected parameter name {name}")
+    return {"params": tree}
+
+
+def save_npz_weights(net, path):
+    """Export `net`'s parameters as a compressed npz with slash-joined
+    flax keys, the format `load_npz_weights` (here and in the JAX
+    package) reads.  Returns the number of arrays written."""
+    flat = {"/".join(k): v
+            for k, v in _flatten(params_to_flax(net.state_dict())["params"])}
+    np.savez_compressed(path, **flat)
+    return len(flat)

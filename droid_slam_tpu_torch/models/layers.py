@@ -9,6 +9,29 @@ import torch
 from torch import nn
 
 
+# gradient magnitude threshold of `grad_clip`
+GRAD_CLIP = 0.01
+
+
+class _GradClip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        zero = torch.zeros_like(g)
+        g = torch.where(torch.abs(g) > GRAD_CLIP, zero, g)
+        return torch.where(torch.isnan(g), zero, g)
+
+
+def grad_clip(x):
+    """Identity forward; backward zeroes gradient elements with
+    |g| > 0.01 or NaN.  Used on the delta/weight/eta heads to keep the
+    backward pass through the unrolled BA stable."""
+    return _GradClip.apply(x)
+
+
 def conv(in_ch, out_ch, kernel=3, stride=1, pad=None):
     """2D conv with explicit symmetric padding (torch floor semantics for
     stride 2, as the JAX package's explicit-padding convs)."""

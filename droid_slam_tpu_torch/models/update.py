@@ -1,9 +1,10 @@
 """The recurrent update operator.
 
 Corr/flow encoders feed a ConvGRU; a `delta` head (2-ch flow correction)
-and a `weight` head (2-ch sigmoid confidence); `GraphAgg` averages the
-GRU state over edges that share a source frame and emits the per-frame
-BA damping `eta = 0.01·softplus(·)`.
+and a `weight` head (2-ch sigmoid confidence), both gradient-clipped;
+`GraphAgg` averages the GRU state over edges that share a source frame
+and emits the per-frame BA damping `eta = 0.01·softplus(·)` and the
+8×8×9 convex-upsampling mask.
 
 Public tensors are channels-last ((E, H, W, C)), as in the JAX package.
 The delta/weight heads run unfused (the JAX package fuses them into one
@@ -15,7 +16,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from .gru import ConvGRU
-from .layers import conv, to_nchw, to_nhwc
+from .layers import conv, grad_clip, to_nchw, to_nhwc
 
 COR_PLANES = 4 * (2 * 3 + 1) ** 2  # 196
 
@@ -40,17 +41,19 @@ class GraphAgg(nn.Module):
         self.eta = conv(128, 1, 3)
         self.upmask = conv(128, 8 * 8 * 9, 1, pad=0)
 
-    def forward(self, net, ix, nseg):
+    def forward(self, net, ix, nseg, with_upmask=False):
         """net: (E, 128, H, W) NCHW; ix: (E,) segment ids.
 
-        Returns eta (nseg, H, W) f32.  The `upmask` head (convex
-        upsampling) is loaded with the weights but not run: upsampling is
-        not ported.
+        Returns eta (nseg, H, W) f32 and, with `with_upmask`, the
+        convex-upsampling logits (nseg, H, W, 576).
         """
         net = F.relu(self.conv1(net))
         net = segment_mean(net, ix, nseg)
         net = F.relu(self.conv2(net))
-        return 0.01 * F.softplus(self.eta(net).float())[:, 0]
+        eta = 0.01 * F.softplus(grad_clip(self.eta(net).float()))[:, 0]
+        if not with_upmask:
+            return eta
+        return eta, to_nhwc(self.upmask(net))
 
 
 class UpdateModule(nn.Module):
@@ -67,7 +70,8 @@ class UpdateModule(nn.Module):
         self.weight_2 = conv(128, 2, 3)
         self.agg = GraphAgg()
 
-    def forward(self, net, inp, corr, flow=None, ix=None, nseg=None):
+    def forward(self, net, inp, corr, flow=None, ix=None, nseg=None,
+                with_upmask=False):
         """One update-operator step.
 
         Args:
@@ -77,9 +81,11 @@ class UpdateModule(nn.Module):
           flow: (E, H, W, 4) motion features, or None for zeros.
           ix:   optional (E,) source-frame segment ids for GraphAgg.
           nseg: segment count for GraphAgg.
+          with_upmask: also return GraphAgg's upsampling logits.
 
-        Returns (net, delta, weight[, eta]); net is (E, H, W, 128)
-        in the module's dtype, delta/weight are f32 (E, H, W, 2).
+        Returns (net, delta, weight[, eta[, upmask]]); net is
+        (E, H, W, 128) in the module's dtype, delta/weight are f32
+        (E, H, W, 2).
         """
         dt = self.corr_encoder_0.weight.dtype
         E, H, W, _ = net.shape
@@ -97,12 +103,42 @@ class UpdateModule(nn.Module):
 
         net = self.gru(net, torch.cat([inp, cor, flo], dim=1))
 
-        delta = self.delta_2(F.relu(self.delta_0(net))).float()
-        weight = torch.sigmoid(
-            self.weight_2(F.relu(self.weight_0(net))).float())
+        delta = grad_clip(self.delta_2(F.relu(self.delta_0(net))).float())
+        weight = torch.sigmoid(grad_clip(
+            self.weight_2(F.relu(self.weight_0(net))).float()))
         delta, weight = to_nhwc(delta), to_nhwc(weight)
 
         if ix is None:
             return to_nhwc(net), delta, weight
 
-        return to_nhwc(net), delta, weight, self.agg(net, ix, nseg)
+        agg = self.agg(net, ix, nseg, with_upmask)
+        if not with_upmask:
+            return to_nhwc(net), delta, weight, agg
+        return (to_nhwc(net), delta, weight) + agg
+
+
+def cvx_upsample(data, mask):
+    """Convex-combination 8× upsampling.
+
+    Args:
+      data: (B, H, W, C) field to upsample.
+      mask: (B, H, W, 8*8*9) logits over the 3×3 neighbourhood per
+        subpixel, laid out (9, 8, 8).
+    Returns:
+      (B, 8H, 8W, C).
+    """
+    B, H, W, C = data.shape
+    mask = torch.softmax(mask.reshape(B, H, W, 9, 8, 8), dim=3)
+    # 3×3 neighbourhoods as shifted views of the zero-padded field,
+    # neighbour index k = 3·dy + dx (channels stay last: F.unfold would
+    # order patches channel-major)
+    pad = F.pad(data, (0, 0, 1, 1, 1, 1))
+    neigh = torch.stack([pad[:, dy:dy + H, dx:dx + W]
+                         for dy in range(3) for dx in range(3)], dim=3)
+    up = torch.einsum("bhwkyx,bhwkc->bhwyxc", mask, neigh)
+    return up.permute(0, 1, 3, 2, 4, 5).reshape(B, 8 * H, 8 * W, C)
+
+
+def upsample_disp(disp, mask):
+    """disp: (B, H, W) -> (B, 8H, 8W) via cvx_upsample."""
+    return cvx_upsample(disp[..., None], mask)[..., 0]

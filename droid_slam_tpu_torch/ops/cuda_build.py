@@ -1,13 +1,15 @@
 """Build and load the package's CUDA kernels.
 
-A `csrc/<name>.cu` file is compiled by `nvcc` into its own shared library
-with a plain C interface (no PyTorch headers: seconds to build) and
-loaded with ctypes.  Builds go to `csrc/build/` (ignored by git) at first
-use and are reused while they are newer than their source.  Nothing here
-runs at import time.
+Every `csrc/<name>.cu` file is compiled by `nvcc` into its own shared
+library with a plain C interface (no PyTorch headers: seconds to build)
+and loaded with ctypes.  Builds go to `csrc/build/` (ignored by git) at
+first use: the first `load` compiles every source that is missing or
+older than its source file, one `nvcc` process per source, all started
+together.  Nothing here runs at import time.
 """
 
 import ctypes
+import glob
 import os
 import os.path as osp
 import shutil
@@ -36,35 +38,72 @@ def nvcc_path():
                        "CUDA toolkit's compiler (set CUDA_HOME)")
 
 
-def _build(src, lib):
-    """Compile `src` into a temporary file, then rename it to `lib`."""
+def source_names():
+    """Names of the kernel libraries: every csrc/<name>.cu."""
+    return sorted(osp.basename(p)[:-3]
+                  for p in glob.glob(osp.join(CSRC, "*.cu")))
+
+
+def _paths(name):
+    return (osp.join(CSRC, name + ".cu"),
+            osp.join(BUILD_DIR, f"lib{name}.so"))
+
+
+def _stale(name):
+    src, lib = _paths(name)
+    return not osp.isfile(lib) or osp.getmtime(lib) < osp.getmtime(src)
+
+
+def _build(names):
+    """Compile the sources of `names` side by side, each into a temporary
+    file that is renamed to its library when its `nvcc` succeeds."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src]
-    out = subprocess.run(cmd, stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT, text=True)
-    if out.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {src}:\n{out.stdout}")
-    os.replace(tmp, lib)
-    return out.stdout
+    nvcc = nvcc_path()
+    procs = []
+    for name in names:
+        src, lib = _paths(name)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src]
+        procs.append((name, src, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, src, lib, tmp, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed for {src}:\n{out}")
+        else:
+            os.replace(tmp, lib)
+            BUILD_LOG[name] = out
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
-def load(name, force=False):
-    """ctypes handle of kernel library `name`, built first when it is
-    missing, older than its source, or `force` is set (before the first
-    load of the process only)."""
+def build_all(force=False):
+    """Build every kernel library that is missing or older than its source
+    (all of them with `force`); libraries this process has already loaded
+    are left alone.  Returns the names built."""
     with _lock:
-        if name in _libs and not force:
+        names = [n for n in source_names()
+                 if n not in _libs and (force or _stale(n))]
+        if names:
+            _build(names)
+        return names
+
+
+def load(name):
+    """ctypes handle of kernel library `name`; the first call builds every
+    stale library (see `build_all`)."""
+    with _lock:
+        if name in _libs:
             return _libs[name]
-        src = osp.join(CSRC, name + ".cu")
-        lib = osp.join(BUILD_DIR, f"lib{name}.so")
-        if force or not osp.isfile(lib) \
-                or osp.getmtime(lib) < osp.getmtime(src):
-            if name in _libs:
-                raise RuntimeError(f"{name} is already loaded")
-            BUILD_LOG[name] = _build(src, lib)
-        _libs[name] = ctypes.CDLL(lib)
+    if not osp.isfile(_paths(name)[0]):
+        raise ValueError(f"no kernel source csrc/{name}.cu")
+    build_all()
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(_paths(name)[1])
         return _libs[name]

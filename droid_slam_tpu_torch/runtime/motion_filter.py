@@ -49,7 +49,8 @@ class MotionFilter:
         pyramid = corr_ops.build_pyramid(corr_ops.corr_volume(f1, f2))
         ht, wd = kf_fmap.shape[0], kf_fmap.shape[1]
         coords0 = projective.coords_grid(ht, wd, device=f1.device)
-        corr = corr_ops.lookup_pyramid(pyramid, coords0[None, None])
+        corr = corr_ops.lookup_pyramid(pyramid, coords0[None, None],
+                                       impl="flat")
         _, delta, _ = self.net.update(knet[None], kinp[None], corr[0])
         return torch.mean(torch.linalg.norm(delta, dim=-1))
 

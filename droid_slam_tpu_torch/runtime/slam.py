@@ -9,14 +9,12 @@ disparity upsampling and the host-driven (non-fused) frontend raise
 NotImplementedError.
 """
 
-import math
-
 import torch
 
 from ..config import SLAMConfig
 from ..lie import se3
 from ..models.convert import load_weights
-from ..models.droidnet import DroidNet
+from ..models.droidnet import DroidNet, random_init
 from .backend import Backend
 from .fused import FusedFrontend
 from .motion_filter import MotionFilter
@@ -32,21 +30,6 @@ def resolve_device(device=None):
         raise RuntimeError("no CUDA device available; pass device='cpu' to "
                            "run on the CPU")
     return dev
-
-
-def random_init(net, seed):
-    """Deterministic random weights: conv kernels ~ N(0, 2/fan_out),
-    biases 0 (the JAX package's initializer family), from an explicit
-    generator."""
-    g = torch.Generator().manual_seed(seed)
-    for m in net.modules():
-        if isinstance(m, torch.nn.Conv2d):
-            fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
-            with torch.no_grad():
-                m.weight.copy_(torch.randn(m.weight.shape, generator=g)
-                               * math.sqrt(2.0 / fan_out))
-                m.bias.zero_()
-    return net
 
 
 class Droid:

@@ -145,7 +145,8 @@ def test_cpu_tensors_take_the_plain_version():
     tcorr.reset_launch_counts()
     np.testing.assert_array_equal(tcorr.lookup_flat(v, c).numpy(),
                                   tcorr.lookup_flat_reference(v, c).numpy())
-    assert tcorr.launch_counts() == {"corr_lookup": 0}
+    counts = tcorr.launch_counts()
+    assert "corr_lookup" in counts and not any(counts.values())
     with pytest.raises(ValueError, match="CUDA"):
         tcorr.lookup_flat_cuda(v, c)
 

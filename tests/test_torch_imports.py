@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of droid_slam_tpu_torch/, not
 chip_smoke.py and not the port's tools (tools/torch_*.py) import jax,
-flax or the JAX package, and entry points default to the CUDA card."""
+flax, optax, orbax or the JAX package, and entry points (`Droid`, `train`,
+the training CLI) default to the CUDA card."""
 
 import ast
 import glob
@@ -11,7 +12,8 @@ import sys
 import pytest
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "droid_slam_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex",
+             "droid_slam_tpu")
 
 
 def _package_files():
@@ -68,3 +70,36 @@ def test_droid_defaults_to_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         Droid(SLAMConfig(image_size=(32, 48), buffer=4))
+
+
+def _run_cli(args):
+    code = ("import sys\n"
+            "from droid_slam_tpu_torch import train\n"
+            f"try:\n    train.main({args!r})\n"
+            "finally:\n"
+            "    bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "    assert not bad, bad\n")
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_train_cli_parses_without_jax():
+    """`python -m droid_slam_tpu_torch.train`: --help works, a run without
+    --synthetic is refused (no other data source is ported), and neither
+    loads any forbidden module."""
+    r = _run_cli(["--help"])
+    assert r.returncode == 0 and "--synthetic" in r.stdout, r.stderr[-2000:]
+    r = _run_cli(["--steps", "1"])
+    assert r.returncode == 2 and "--synthetic" in r.stderr, r.stderr[-2000:]
+
+
+def test_train_cli_defaults_to_cuda():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = _run_cli(["--synthetic", "--scenes", "1", "--steps", "1",
+                  "--n_frames", "3", "--image_size", "32", "48"])
+    assert r.returncode == 1 and "no CUDA device" in r.stderr, \
+        r.stderr[-2000:]

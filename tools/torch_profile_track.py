@@ -48,6 +48,29 @@ def union_ms(intervals):
     return total / 1e3
 
 
+def device_summary(prof):
+    """Device-side totals of a finished torch.profiler run: busy time
+    (union of kernel and copy intervals), span, idle share, launch count
+    and the TOP kernels by device time."""
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end) for e in dev]
+    busy = union_ms(spans)
+    span = ((max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
+            if spans else 0.0)
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    return dict(
+        device_busy_ms=busy, device_span_ms=span,
+        device_idle_share=(1.0 - busy / span) if span > 0 else None,
+        launches=len(dev),
+        top=[dict(name=n[:120], ms=v[0], share=v[0] / busy if busy else 0,
+                  count=v[1]) for n, v in top])
+
+
 def main():
     if not torch.cuda.is_available():
         print("torch_profile_track: no CUDA device", file=sys.stderr)
@@ -77,28 +100,14 @@ def main():
         torch.cuda.synchronize()
         window_ms = (time.time() - t) * 1e3
 
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = [(e.time_range.start, e.time_range.end) for e in dev]
-    busy = union_ms(spans)
-    span = ((max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
-            if spans else 0.0)
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in dev:
-        by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
-        by_name[e.name][1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    summary = device_summary(prof)
     n_kf = droid.video.counter - kf0
     out = dict(
         device=torch.cuda.get_device_name(0),
         frames=FRAMES - SKIP, filter_passed=passed,
-        keyframes_added=n_kf, window_ms=window_ms, device_busy_ms=busy,
-        device_span_ms=span,
-        device_idle_share=(1.0 - busy / span) if span > 0 else None,
-        launches=len(dev),
-        launches_per_passed_frame=len(dev) / max(passed, 1),
-        top=[dict(name=n[:120], ms=v[0], share=v[0] / busy if busy else 0,
-                  count=v[1]) for n, v in top])
+        keyframes_added=n_kf, window_ms=window_ms,
+        launches_per_passed_frame=summary["launches"] / max(passed, 1),
+        **summary)
     print(json.dumps(out), flush=True)
     return 0
 
