@@ -12,11 +12,16 @@
    Seeded coordinates: the identity grid plus a small flow, as an update
    round gives them, with ~2% far out of bounds.
    a. The serving lookup at the shapes of the 240×320 main path (64
-      edges, 4 pyramid levels, bf16 volumes, both layouts).
-   b. The training lookups (two forward schedules) and their backward at
-      the shapes of `TrainConfig()` (40 edge slots, 48×64 queries, 4
-      levels of an f32 pyramid); the backward also against
-      torch.autograd.grad through the plain forwards.
+      edges, 4 pyramid levels of bf16 query-major planes), one launch
+      per pyramid.
+   b. The training lookups (the one-launch pyramid schedule and the
+      per-level second schedule) and their backward at the shapes of
+      `TrainConfig()` (40 edge slots, 48×64 queries, 4 levels of an f32
+      pyramid); the backward also against torch.autograd.grad through
+      the plain forwards.
+   Times are per 4-level pyramid; a kernel that serves one level per
+   launch is timed level by level and summed (a one-launch kernel has no
+   per-level time; its levels list the bound and the library call).
 3. Serving main path: `Droid(SLAMConfig())` with the shipped weights
    tracks 80 frames of a synthetic textured-box sequence one by one and
    terminates (global BA + trajectory fill); launch counts are reset just
@@ -29,8 +34,9 @@
    curriculum, then timed accumulate/apply steps on one fixed batch under
    both lookup schedules.  Launch counts are reset just before and read
    just after.  Raises unless every loss and gradient norm is finite,
-   every training kernel was launched, and the shipped weights reach a
-   lower loss on the fixed batch than the seeded initialisation.  Prints
+   every training kernel was launched (the default schedule once per
+   pyramid forward, once per level backward), and the shipped weights
+   reach a lower loss on the fixed batch than the seeded initialisation.  Prints
    step time, peak memory and launches per step.
 5. Prints the card's name and power limit, one {"kernels": [...]} line,
    and as the last line {"ok": true, "device": {...}}.
@@ -117,98 +123,110 @@ def grid_sample_lookup(planes, coords):
     return out[:, 0].transpose(1, 2).reshape(Q, -1)
 
 
-def lookup_bytes(coords, h2, w2, elem):
-    """Least bytes of one lookup with these coordinates: the in-bounds
-    window taps each query must read (64 at most), its 49 f32 outputs and
-    its 8 coordinate bytes."""
+def window_bytes(coords, h2, w2, elem):
+    """Least bytes one level of a lookup must read with these level-scale
+    coordinates: the in-bounds window elements of each query (64 at
+    most)."""
     x0 = torch.floor(coords[..., 0]).clamp(-2e4, 2e4).long()
     y0 = torch.floor(coords[..., 1]).clamp(-2e4, 2e4).long()
     offs = torch.arange(2 * RADIUS + 2, device=coords.device) - RADIUS
     nx = ((x0[..., None] + offs >= 0) & (x0[..., None] + offs < w2)).sum(-1)
     ny = ((y0[..., None] + offs >= 0) & (y0[..., None] + offs < h2)).sum(-1)
-    taps = int((nx * ny).sum())
+    return int((nx * ny).sum()) * elem
+
+
+def lookup_bytes(coords, h2, w2, elem):
+    """Least bytes of a one-level lookup: its window elements, 49 f32
+    outputs and 8 coordinate bytes per query."""
     q = coords.numel() // 2
-    return taps * elem + q * 49 * 4 + q * 8
+    return window_bytes(coords, h2, w2, elem) + q * 49 * 4 + q * 8
+
+
+def pyramid_bytes(coords, planes, elem):
+    """Least bytes of a one-launch pyramid lookup with these level-0
+    coordinates: every level's window elements and 49 f32 outputs, and the
+    coordinates once."""
+    q = coords.numel() // 2
+    return (sum(window_bytes(coords / 2 ** l, h2, w2, elem) + q * 49 * 4
+                for l, (h2, w2) in enumerate(planes)) + q * 8)
+
+
+def flow_coords(rng, E, h, w):
+    """(E, h, w, 2) level-0 coordinates: the identity grid plus a flow of
+    a few pixels, as an update round gives them; ~2% of the queries far
+    out of bounds, as padded queries are."""
+    gy, gx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    c = np.stack([gx, gy], -1)[None] + rng.normal(0.0, 2.0, (E, h, w, 2))
+    c[rng.random((E, h, w)) < 0.02] = -1e4
+    return torch.from_numpy(c.astype(np.float32)).cuda()
+
+
+def bound_row(nbytes, ops):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms), bytes=nbytes,
+                bytes_ms=bytes_ms, ops_ms=ops_ms)
+
+
+def check_equal(got, want):
+    """The kernel against its plain version; returns max_abs_err."""
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    return float((got - want).abs().max())
 
 
 def kernel_phase(corr):
-    """The lookup kernel at the main path's shapes, both layouts."""
+    """The serving lookup kernel at the main path's shapes: one launch per
+    4-level pyramid of query-major bf16 planes."""
     E, h, w = 64, 30, 40                       # 240x320 at 1/8
     HW = h * w
     rng = np.random.default_rng(0)
-    levels = []
-    report = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                  bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0,
-                  library_max_abs_err=0.0)
-    for lvl in range(4):
-        h2, w2 = h >> lvl, w >> lvl
-        vol = torch.from_numpy(
-            rng.standard_normal((E, h2, w2, HW)).astype(np.float32)
-        ).cuda().to(torch.bfloat16)            # query-last, as cached
-        # the identity grid at level scale plus a flow of a few pixels at
-        # level 0, as an update round gives them; ~2% of the queries far
-        # out of bounds, as padded queries are
-        gy, gx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-        grid = np.stack([gx, gy], -1).reshape(1, HW, 2)
-        c = (grid + rng.normal(0.0, 2.0, (E, HW, 2))) / 2 ** lvl
-        c[rng.random((E, HW)) < 0.02] = -1e4
-        coords = torch.from_numpy(c.astype(np.float32)).cuda()
-        planes = vol.permute(0, 3, 1, 2).contiguous()          # (E,HW,h2,w2)
-        for view in (vol, corr.query_major_view(planes)):
-            got = corr.lookup_flat_cuda(view, coords)
-            ref = corr.lookup_flat_reference(view, coords)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got, ref, **TOL)
-            report["max_abs_err"] = max(report["max_abs_err"],
-                                        float((got - ref).abs().max()))
-        flat = planes.reshape(E * HW, h2, w2).float()
-        cflat = coords.reshape(E * HW, 2)
-        lib = grid_sample_lookup(flat, cflat)
-        ref = corr.lookup_flat_reference(vol, coords).reshape(E * HW, -1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    planes = [(h >> l, w >> l) for l in range(4)]
+    vols = [torch.randn((E, HW, h2, w2), device="cuda",
+                        generator=gen).to(torch.bfloat16)
+            for h2, w2 in planes]              # query-major, as cached
+    coords = flow_coords(rng, E, h, w).reshape(E, HW, 2)
+
+    got = corr.lookup_pyramid_flat_cuda(vols, coords)
+    ref = corr.lookup_pyramid_flat_reference(vols, coords)
+    report = dict(max_abs_err=check_equal(got, ref), library_ms=0.0,
+                  library_max_abs_err=0.0, levels=[])
+    report.update(bound_row(
+        pyramid_bytes(coords, planes, vols[0].element_size()),
+        4 * E * HW * LOOKUP_FLOPS_PER_QUERY))
+    report["ms"] = cuda_time_ms(
+        lambda: corr.lookup_pyramid_flat_cuda(vols, coords))
+    report["plain_ms"] = cuda_time_ms(
+        lambda: corr.lookup_pyramid_flat_reference(vols, coords), reps=5)
+    # level by level: the library call (it takes one level) and the
+    # level's share of the bound
+    for lvl, vol in enumerate(vols):
+        h2, w2 = planes[lvl]
+        c = coords / 2 ** lvl
+        flat = vol.reshape(E * HW, h2, w2).float()
+        cflat = c.reshape(E * HW, 2)
+        lib = grid_sample_lookup(flat, cflat).reshape(E, HW, -1)
         report["library_max_abs_err"] = max(
             report["library_max_abs_err"],
-            float((lib.float() - ref).abs().max()))
-
-        ms = cuda_time_ms(lambda: corr.lookup_flat_cuda(vol, coords))
-        plain = cuda_time_ms(lambda: corr.lookup_flat_reference(vol, coords),
-                             reps=5)
+            float((lib - ref[..., 49 * lvl:49 * (lvl + 1)]).abs().max()))
         libms = cuda_time_ms(lambda: grid_sample_lookup(flat, cflat))
-        nbytes = lookup_bytes(coords, h2, w2, vol.element_size())
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = E * HW * LOOKUP_FLOPS_PER_QUERY / F32_FLOPS_PER_S * 1e3
-        bound = max(bytes_ms, ops_ms)
-        levels.append(dict(level=lvl, shape=[E, h2, w2, HW], ms=ms,
-                           plain_ms=plain, library_ms=libms,
-                           bound_ms=bound, bytes=nbytes, bytes_ms=bytes_ms,
-                           ops_ms=ops_ms))
-        report["ms"] += ms
-        report["plain_ms"] += plain
+        row = dict(level=lvl, shape=[E, HW, h2, w2], library_ms=libms)
+        row.update(bound_row(lookup_bytes(c, h2, w2, vol.element_size()),
+                             E * HW * LOOKUP_FLOPS_PER_QUERY))
+        report["levels"].append(row)
         report["library_ms"] += libms
-        report["bound_ms"] += bound
-        report["bytes_ms"] += bytes_ms
-        report["ops_ms"] += ops_ms
-        del vol, planes, flat
-        torch.cuda.empty_cache()
-    report["levels"] = levels
+        del flat, lib
     return report
-
-
-def level_coords(rng, E, h, w, lvl):
-    """(1, E, h, w, 2) coordinates at level scale: identity grid plus a
-    2 px flow (level-0 units), ~2% of the queries far out of bounds."""
-    gy, gx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    grid = np.stack([gx, gy], -1)[None]
-    c = (grid + rng.normal(0.0, 2.0, (E, h, w, 2))) / 2 ** lvl
-    c[rng.random((E, h, w)) < 0.02] = -1e4
-    return torch.from_numpy(c.astype(np.float32)[None]).cuda()
 
 
 def level_kernel_phase(corr):
     """The training lookups and their backward at TrainConfig() shapes."""
     from droid_slam_tpu_torch.ops.corr import (
         lookup_level_backward_cuda, lookup_level_backward_reference,
-        lookup_level_cuda, lookup_level_reference, lookup_level_v2_cuda,
-        lookup_level_v2_reference)
+        lookup_level_reference, lookup_level_v2_cuda,
+        lookup_level_v2_reference, lookup_pyramid_level_cuda,
+        lookup_pyramid_level_reference)
 
     E, h, w = 40, 48, 64                       # 384x512 at 1/8
     Q = E * h * w
@@ -217,31 +235,41 @@ def level_kernel_phase(corr):
     volume = torch.randn((1, E, h, w, h, w), device="cuda", generator=gen)
     pyramid = corr.build_pyramid(volume)
     del volume
+    coords0 = flow_coords(rng, E, h, w)[None]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms",
             "max_abs_err")
     names = ("lookup_level_fwd", "lookup_level_v2_fwd", "lookup_level_bwd")
     report = {n: dict({k: 0.0 for k in keys}, levels=[]) for n in names}
     report["lookup_level_bwd"]["autograd_max_abs_err"] = 0.0
-    forwards = {
-        "lookup_level_fwd": (lookup_level_cuda, lookup_level_reference),
-        "lookup_level_v2_fwd": (lookup_level_v2_cuda,
-                                lookup_level_v2_reference)}
 
     def add(name, lvl, shape, ms, plain, lib, nbytes, ops, err):
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_FLOPS_PER_S * 1e3
         row = dict(level=lvl, shape=shape, ms=ms, plain_ms=plain,
-                   library_ms=lib, bound_ms=max(bytes_ms, ops_ms),
-                   bytes=nbytes, bytes_ms=bytes_ms, ops_ms=ops_ms)
+                   library_ms=lib, **bound_row(nbytes, ops))
         rep = report[name]
         rep["levels"].append(row)
         for k in keys[:-1]:
             rep[k] += row[k]
         rep["max_abs_err"] = max(rep["max_abs_err"], err)
 
+    # the whole pyramid in one launch
+    got = lookup_pyramid_level_cuda(pyramid, coords0)
+    want = lookup_pyramid_level_reference(pyramid, coords0)
+    rep = report["lookup_level_fwd"]
+    rep["max_abs_err"] = check_equal(got, want)
+    del got, want
+    rep.update(bound_row(
+        pyramid_bytes(coords0, [v.shape[-2:] for v in pyramid],
+                      pyramid[0].element_size()),
+        4 * Q * LOOKUP_FLOPS_PER_QUERY))
+    rep["ms"] = cuda_time_ms(
+        lambda: lookup_pyramid_level_cuda(pyramid, coords0))
+    rep["plain_ms"] = cuda_time_ms(
+        lambda: lookup_pyramid_level_reference(pyramid, coords0), reps=3,
+        batches=3)
+
     for lvl, vol in enumerate(pyramid):
         h2, w2 = vol.shape[-2:]
-        coords = level_coords(rng, E, h, w, lvl)
+        coords = coords0 / 2 ** lvl
         g = torch.randn((1, E, h, w, 49), device="cuda", generator=gen)
         planes = vol.reshape(Q, h2, w2)
         cflat = coords.reshape(Q, 2)
@@ -249,23 +277,23 @@ def level_kernel_phase(corr):
 
         libms = cuda_time_ms(lambda: grid_sample_lookup(planes, cflat))
         fwd_bytes = lookup_bytes(coords, h2, w2, vol.element_size())
-        for name, (kern, ref) in forwards.items():
-            got, want = kern(vol, coords), ref(vol, coords)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got, want, **TOL)
-            err = float((got - want).abs().max())
-            del got, want
-            add(name, lvl, shape, cuda_time_ms(lambda: kern(vol, coords)),
-                cuda_time_ms(lambda: ref(vol, coords), reps=3, batches=3),
-                libms, fwd_bytes, Q * LOOKUP_FLOPS_PER_QUERY, err)
+        report["lookup_level_fwd"]["library_ms"] += libms
+        report["lookup_level_fwd"]["levels"].append(dict(
+            level=lvl, shape=shape, library_ms=libms,
+            **bound_row(fwd_bytes, Q * LOOKUP_FLOPS_PER_QUERY)))
+        err = check_equal(lookup_level_v2_cuda(vol, coords),
+                          lookup_level_v2_reference(vol, coords))
+        add("lookup_level_v2_fwd", lvl, shape,
+            cuda_time_ms(lambda: lookup_level_v2_cuda(vol, coords)),
+            cuda_time_ms(lambda: lookup_level_v2_reference(vol, coords),
+                         reps=3, batches=3),
+            libms, fwd_bytes, Q * LOOKUP_FLOPS_PER_QUERY, err)
 
         # backward: against its plain version and against autograd through
         # both plain forwards
         got = lookup_level_backward_cuda(g, coords, h2, w2)
         want = lookup_level_backward_reference(g, coords, h2, w2)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, **TOL)
-        err = float((got - want).abs().max())
+        err = check_equal(got, want)
         del want
         rep = report["lookup_level_bwd"]
         for ref in (lookup_level_reference, lookup_level_v2_reference):
@@ -398,6 +426,12 @@ def training_phase(corr):
                  "lookup_level_bwd"):
         if launches[name] <= 0:
             raise RuntimeError(f"the training path never launched {name}")
+    # under "level" a pyramid is one forward launch, and one backward
+    # launch per level
+    per_step = steps[1]["launches"]
+    if (per_step["lookup_level_fwd"] != cfg.iters
+            or per_step["lookup_level_bwd"] != 4 * cfg.iters):
+        raise RuntimeError(f"{cfg.iters} iterations launched {per_step}")
     out = dict(train_steps=TRAIN_STEPS, train_s=t_train,
                launches_train=launches_train, logged=logged,
                step_s_level=steps[1]["step_s"],
@@ -524,8 +558,8 @@ def main():
         ms=kern["ms"], plain_ms=kern["plain_ms"],
         bound_ms=kern["bound_ms"], bound_by=bound_by(kern),
         library_ms=kern["library_ms"],
-        note="ms per 4-level pyramid lookup of 64 edges at 240x320, "
-             "identity grid plus a small flow",
+        note="ms per 4-level pyramid lookup of 64 edges at 240x320 in "
+             "one launch, identity grid plus a small flow",
     )]
     replaces = {
         "lookup_level_fwd": "droid_slam_tpu/ops/corr_pallas.py:83 "

@@ -11,12 +11,15 @@
 //   lookup_level_fwd     replaces the TPU kernel droid_slam_tpu/ops/
 //                        corr_pallas.py: lookup_level_pallas (body
 //                        _lookup_kernel): 8x8 window, four-corner combine.
+//                        One launch serves a whole pyramid of up to four
+//                        levels: coords are at level-0 resolution and level
+//                        l lands at out[q, 49 l + ox * 7 + oy].
 //   lookup_level_v2_fwd  replaces lookup_level_pallas_v2 (body
 //                        _lookup_kernel_v2): window rows blended along x,
-//                        then neighbouring rows blended along y.
+//                        then neighbouring rows blended along y; one level.
 //   lookup_level_bwd     the gradient of either forward with respect to the
 //                        volume (the TPU package differentiates its jnp
-//                        lookup; there is no TPU kernel for it).
+//                        lookup; there is no TPU kernel for it); one level.
 //
 // The TPU kernels zero-pad every plane to (8, 128) tiles and bring the
 // window to the origin with dynamic rotates, because a TPU cannot slice a
@@ -25,15 +28,26 @@
 // window row is 8 adjacent floats (one 32-byte sector when aligned).
 //
 // Each kernel keeps the operation order of its plain PyTorch version
-// (ops/corr.py: lookup_level_reference, lookup_level_v2_reference,
+// (ops/corr.py: lookup_pyramid_level_reference, lookup_level_v2_reference,
 // lookup_level_backward_reference) and uses the _rn intrinsics so that nvcc
 // contracts nothing into FMAs.
 //
 // Schedules.
-//   fwd:  one warp per query.  Lane l loads window elements (row l / 4,
-//         columns 2 (l % 4), +1) into shared memory; then lanes take taps
-//         l and l + 32 and the warp writes the 49 taps as one contiguous
-//         run.
+//   fwd:  that of lookup_pyramid.cuh with the four-corner combine: eight
+//         lanes a query (a lane owns a window column, so a warp-wide load
+//         reads four 32-byte row segments), the loads of all levels in
+//         flight before the first is used, neighbouring columns by shuffle,
+//         a run's taps written as one contiguous stretch of 16-byte stores,
+//         a grid sized to the card striding over the runs.  Its first
+//         version was one warp per query and level: 122,880 one-shot warps
+//         a level at the training shapes, each two dependent round trips to
+//         device memory long (coordinates, then two 4-byte loads a lane)
+//         with ~460 bytes in flight, so every level cost the same whatever
+//         its planes' size, and a pyramid was four launches, four
+//         coordinate divides and a concatenation that moved more bytes than
+//         the kernels.  At the training shapes a pyramid takes 0.125 ms
+//         where the first version's four launches took 0.153 (NVIDIA H100
+//         80GB HBM3, 700.00 W; tools/torch_bench_lookup.py).
 //   v2:   eight lanes per query, four queries a warp.  Lane k of a query
 //         loads window row k (8 floats), blends it along x in registers,
 //         takes row k + 1's blend by __shfl_down_sync and blends along y.
@@ -46,33 +60,21 @@
 //         deterministic.  The caller zero-fills the gradient; the kernel
 //         writes only in-bounds window elements.
 //
-// Bound on the H100 (3.35 TB/s): bytes.  Forward, per query: at most 64
-// window elements (256 B of f32), 196 B of taps, 8 B of coordinates; at
-// level 0 of the training shapes (Q = 40 * 48 * 64) about 56.5 MB, 17 us.
-// Backward: the dense gradient itself, Q * h2 * w2 * 4 B, written once
-// (1.51 GB, 0.45 ms at level 0): the zero fill dominates, the kernel's own
-// traffic is that of a forward.  Offsets are 64-bit: a level-0 volume at
-// batch 4 passes 2^31 bytes.
+// Bound on the H100 (3.35 TB/s): bytes.  Forward, per query and level: at
+// most 64 window elements (256 B of f32) and 196 B of taps, plus 8 B of
+// coordinates per query; a four-level pyramid of the training shapes (Q =
+// 40 * 48 * 64) is about 192 MB, 57 us.  Backward: the dense gradient
+// itself, Q * h2 * w2 * 4 B, written once (1.51 GB, 0.45 ms at level 0):
+// the zero fill dominates, the kernel's own traffic is that of a forward.
+// Offsets are 64-bit: a level-0 volume at batch 4 passes 2^31 bytes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lookup_pyramid.cuh"
 
 namespace {
 
-constexpr int kRadius = 3;
-constexpr int kDiam = 2 * kRadius + 1;   // 7 taps per axis
-constexpr int kWin = kDiam + 1;          // 8 integer rows/cols
-constexpr int kTaps = kDiam * kDiam;     // 49
-constexpr int kWarps = 8;                // warps per block
-constexpr int kThreads = 32 * kWarps;
+using namespace lookup;
+
 constexpr int kQueriesV2 = 4;            // queries per warp in the v2 kernel
-
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
 
 // integer window origin and bilinear weights of one query
 struct Query {
@@ -99,44 +101,22 @@ __device__ __forceinline__ Query read_query(const float* __restrict__ coords,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-lookup_level_fwd_kernel(const T* __restrict__ vol,
-                        const float* __restrict__ coords,
-                        float* __restrict__ out, int64_t Q, int h2, int w2) {
-  __shared__ float patch[kWarps][kWin][kWin + 1];
+lookup_level_fwd_kernel(const Pyramid pyr, const float* __restrict__ coords,
+                        float* __restrict__ out, int64_t Q) {
+  __shared__ __align__(16) float stage[kWarps][kRun * kTaps * kMaxLevels];
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t q = (int64_t)blockIdx.x * kWarps + warp;
-  if (q >= Q) return;   // the whole warp leaves; only warp-level syncs below
-  const Query s = read_query(coords, q);
-  const T* plane = vol + q * ((int64_t)h2 * w2);
+  // one edge of Q queries: plane q belongs to query q
+  lookup_pyramid_warp<T, /*kSeparable=*/false>(
+      pyr, coords, out, Q, 1, 1, stage[warp],
+      (int64_t)blockIdx.x * kWarps + warp, (int64_t)gridDim.x * kWarps);
+}
 
-  const int row = lane >> 2;
-  const int col = (lane & 3) * 2;
-  const int y = s.y0 - kRadius + row;
-  const bool row_ok = (y >= 0) && (y < h2);
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int x = s.x0 - kRadius + col + j;
-    patch[warp][row][col + j] =
-        (row_ok && x >= 0 && x < w2) ? load_f32(plane + (int64_t)y * w2 + x)
-                                     : 0.0f;
-  }
-  __syncwarp();
-
-  const float w00 = __fmul_rn(s.omx, s.omy);
-  const float w10 = __fmul_rn(s.dx, s.omy);
-  const float w01 = __fmul_rn(s.omx, s.dy);
-  const float w11 = __fmul_rn(s.dx, s.dy);
-  float* o = out + q * kTaps;
-  for (int t = lane; t < kTaps; t += 32) {
-    const int ox = t / kDiam;
-    const int oy = t - ox * kDiam;
-    float v = __fmul_rn(w00, patch[warp][oy][ox]);
-    v = __fadd_rn(v, __fmul_rn(w10, patch[warp][oy][ox + 1]));
-    v = __fadd_rn(v, __fmul_rn(w01, patch[warp][oy + 1][ox]));
-    v = __fadd_rn(v, __fmul_rn(w11, patch[warp][oy + 1][ox + 1]));
-    o[t] = v;
-  }
+template <typename T>
+int launch_pyramid(const Pyramid& pyr, const float* coords, float* out,
+                   int64_t Q, cudaStream_t s) {
+  const unsigned blocks = pyramid_grid(lookup_level_fwd_kernel<T>, Q);
+  lookup_level_fwd_kernel<T><<<blocks, kThreads, 0, s>>>(pyr, coords, out, Q);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -246,28 +226,29 @@ inline unsigned blocks_for(int64_t warps) {
 
 }  // namespace
 
-// vol: Q contiguous (h2, w2) planes; dtype 0 = float32, 1 = bfloat16.
-// coords (Q, 2) and out (Q, 49) are contiguous float32.  Each function
-// launches on `stream` and returns cudaGetLastError() (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  Each function launches on `stream` and
+// returns cudaGetLastError() (0 on success).
 
-extern "C" int lookup_level_fwd(const void* vol, int dtype,
+// vols: `levels` (1..4) device pointers, level l holding Q contiguous
+// (h2[l], w2[l]) planes of one dtype.  coords (Q, 2) at level-0 resolution
+// and out (Q, 49 levels) are contiguous float32, out 16-byte aligned.
+extern "C" int lookup_level_fwd(const void* const* vols, const int* h2,
+                                const int* w2, int levels, int dtype,
                                 const float* coords, float* out, int64_t Q,
-                                int h2, int w2, void* stream) {
-  if (Q == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = blocks_for(Q);
-  if (dtype == 0) {
-    lookup_level_fwd_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(vol), coords, out, Q, h2, w2);
-  } else if (dtype == 1) {
-    lookup_level_fwd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(vol), coords, out, Q, h2, w2);
-  } else {
+                                void* stream) {
+  Pyramid pyr;
+  if (!make_pyramid(&pyr, vols, h2, w2, levels)) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  if (Q == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_pyramid<float>(pyr, coords, out, Q, s);
+  if (dtype == 1) return launch_pyramid<__nv_bfloat16>(pyr, coords, out, Q, s);
+  return (int)cudaErrorInvalidValue;
 }
 
+// vol: Q contiguous (h2, w2) planes; coords (Q, 2) in level units and out
+// (Q, 49) are contiguous float32.
 extern "C" int lookup_level_v2_fwd(const void* vol, int dtype,
                                    const float* coords, float* out,
                                    int64_t Q, int h2, int w2, void* stream) {

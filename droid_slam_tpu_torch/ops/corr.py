@@ -5,31 +5,35 @@ package: channel ``ox * (2r+1) + oy`` (x-offset major), sample position
 ``(x + ox - r, y + oy - r)``, zero contribution from out-of-bounds
 bilinear corners.
 
-The serving path's windowed lookups go through `lookup_flat`, on a 4-D
-view (E, h2, w2, Q) of the volume with arbitrary strides:
-  * query-last volumes (E, h2, w2, Q) — the frontend's cached edge
-    pyramid (runtime/fused.py), the layout of the TPU kernel it replaces;
-  * query-major planes (Q, h2, w2), viewed as (1, h2, w2, Q) — the
-    motion filter's one-edge pyramid and the on-the-fly ("alt") path of
-    the boot graph, backend and trajectory filler.
-A CUDA tensor goes to the hand-written kernel (csrc/corr_lookup.cu); a
-CPU tensor goes to the plain PyTorch version `lookup_flat_reference`.
+Every volume is query-major: a query owns one contiguous (h2, w2) plane
+per pyramid level, and consecutive queries' planes are adjacent.
+
+The serving path's windowed lookups go through `lookup_pyramid_flat`, on
+up to four levels of (E, Q, h2_l, w2_l) planes with coordinates at level-0
+resolution: the frontend's cached edge pyramid (runtime/fused.py), and
+the motion filter's one-edge pyramid and the on-the-fly ("alt") path of
+the boot graph, backend and trajectory filler, whose volumes exist one
+block of query pixels at a time; `lookup_flat` is a one-level pyramid.
+A CUDA tensor goes to the hand-written kernel (csrc/corr_lookup.cu), one
+launch per pyramid; a CPU tensor goes to the plain PyTorch version
+`lookup_pyramid_flat_reference`.
 
 The training path looks up contiguous 6-D pyramid levels
-(B, N, H, W, h2, w2) through `lookup_level`, which `set_lookup_impl`
+(B, N, H, W, h2, w2) through `lookup_pyramid`, which `set_lookup_impl`
 routes:
-  * "level" (the training default): `lookup_level_cuda`, one warp per
-    query, four-corner combine — replaces the TPU kernel
+  * "level" (the training default): `lookup_pyramid_level_cuda`, the whole
+    pyramid in one launch, four-corner combine — replaces the TPU kernel
     droid_slam_tpu/ops/corr_pallas.py: lookup_level_pallas;
-  * "level_v2": `lookup_level_v2_cuda`, eight lanes per query, separable
-    blend — replaces lookup_level_pallas_v2;
-  * "flat": the serving kernel on a query-major view (no gradient).
+  * "level_v2": `lookup_level_v2_cuda` level by level, eight lanes per
+    query, separable blend — replaces lookup_level_pallas_v2;
+  * "flat": the serving kernel, one launch (no gradient).
 Both "level" routes are differentiable with respect to the volume: their
 backward is the third kernel of csrc/corr_lookup_level.cu
-(`lookup_level_backward_cuda`).  Each kernel has a plain PyTorch version
-with the same operation order (`lookup_level_reference`,
-`lookup_level_v2_reference`, `lookup_level_backward_reference`) that CPU
-tensors take; a CUDA tensor launches the kernel or raises.
+(`lookup_level_backward_cuda`), once per level.  Each kernel has a plain
+PyTorch version with the same operation order
+(`lookup_pyramid_level_reference`, `lookup_level_v2_reference`,
+`lookup_level_backward_reference`) that CPU tensors take; a CUDA tensor
+launches the kernel or raises.
 """
 
 import ctypes
@@ -60,25 +64,6 @@ def _check_radius(radius):
         raise ValueError(
             f"the correlation lookup only supports radius={RADIUS} "
             f"(got {radius})")
-
-
-def _check_lookup_args(vol, coords):
-    if vol.ndim != 4:
-        raise ValueError(f"vol must be a 4-D (E, h2, w2, Q) view, got "
-                         f"{tuple(vol.shape)}")
-    E, _, _, Qv = vol.shape
-    if coords.ndim != 3 or coords.shape[0] != E or coords.shape[2] != 2:
-        raise ValueError(f"coords must be (E={E}, Q, 2), got "
-                         f"{tuple(coords.shape)}")
-    if coords.shape[1] > Qv:
-        raise ValueError(f"{coords.shape[1]} queries but the volume holds "
-                         f"{Qv}")
-    if vol.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"vol must be float32 or bfloat16, got {vol.dtype}")
-    if coords.dtype != torch.float32:
-        raise TypeError(f"coords must be float32, got {coords.dtype}")
-    if coords.device != vol.device:
-        raise ValueError("vol and coords must be on one device")
 
 
 def _window_index(coords, h2, w2, radius=RADIUS):
@@ -115,60 +100,139 @@ def _gather_window(planes, coords, h2, w2, radius=RADIUS):
     return T.reshape(idx.shape), dx, dy
 
 
-def lookup_flat_reference(vol, coords, radius=RADIUS):
-    """Plain PyTorch version of the lookup kernel (same f32 arithmetic).
+def _separable_taps(T, dx, dy, radius=RADIUS):
+    """(..., 8, 8) windows -> (..., (2r+1)²) taps, x-offset-major: rows
+    blended along x, then neighbouring rows along y."""
+    rd = 2 * radius + 1
+    tx = (1.0 - dx) * T[..., :rd] + dx * T[..., 1:]              # (...,8,7)
+    taps = (1.0 - dy) * tx[..., :rd, :] + dy * tx[..., 1:, :]    # [oy, ox]
+    return taps.transpose(-1, -2).reshape(T.shape[:-2] + (rd * rd,))
+
+
+def _corner_taps(T, dx, dy, radius=RADIUS):
+    """(..., 8, 8) windows -> (..., (2r+1)²) taps, x-offset-major: the
+    four bilinear corner weights times the four window elements."""
+    rd = 2 * radius + 1
+    taps = ((1.0 - dx) * (1.0 - dy) * T[..., :rd, :rd]
+            + dx * (1.0 - dy) * T[..., :rd, 1:]
+            + (1.0 - dx) * dy * T[..., 1:, :rd]
+            + dx * dy * T[..., 1:, 1:])                          # [oy, ox]
+    return taps.transpose(-1, -2).reshape(T.shape[:-2] + (rd * rd,))
+
+
+def _check_levels(levels, lead_ndim, what):
+    """Common checks of a pyramid's levels: 1..NUM_LEVELS tensors of one
+    dtype (float32 or bfloat16), device and leading shape."""
+    levels = list(levels)
+    if not 1 <= len(levels) <= NUM_LEVELS:
+        raise ValueError(f"a pyramid has 1..{NUM_LEVELS} levels, got "
+                         f"{len(levels)}")
+    first = levels[0]
+    for v in levels:
+        if v.ndim != lead_ndim + 2:
+            raise ValueError(f"each level must be {what}, got "
+                             f"{tuple(v.shape)}")
+        if (v.shape[:lead_ndim] != first.shape[:lead_ndim]
+                or v.dtype != first.dtype or v.device != first.device):
+            raise ValueError("the levels of a pyramid share their leading "
+                             "shape, dtype and device")
+    if first.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"volumes must be float32 or bfloat16, got "
+                        f"{first.dtype}")
+    return levels
+
+
+def _check_coords(coords, shape, device):
+    if tuple(coords.shape) != tuple(shape):
+        raise ValueError(f"coords must be {tuple(shape)}, got "
+                         f"{tuple(coords.shape)}")
+    if coords.dtype != torch.float32:
+        raise TypeError(f"coords must be float32, got {coords.dtype}")
+    if coords.device != device:
+        raise ValueError("volumes and coords must be on one device")
+
+
+def _check_flat_args(vols, coords, radius):
+    _check_radius(radius)
+    vols = _check_levels(vols, 2, "(E, Q, h2, w2) planes")
+    E, Qv = vols[0].shape[:2]
+    if coords.ndim != 3 or coords.shape[1] > Qv:
+        raise ValueError(f"coords must be (E={E}, Q<={Qv}, 2), got "
+                         f"{tuple(coords.shape)}")
+    _check_coords(coords, (E, coords.shape[1], 2), vols[0].device)
+    return vols
+
+
+def lookup_pyramid_flat_reference(vols, coords, radius=RADIUS):
+    """Plain PyTorch version of the serving lookup kernel (same f32
+    arithmetic): each level's window blended along x, then along y.
 
     Args:
-      vol: (E, h2, w2, Qv) view, any strides, float32 or bfloat16.
-      coords: (E, Q, 2) float32 [x, y] in level units, Q <= Qv.
+      vols: 1..4 levels of (E, Qv, h2_l, w2_l) query-major planes, level 0
+        first, float32 or bfloat16.
+      coords: (E, Q, 2) float32 [x, y] at level-0 resolution, Q <= Qv.
     Returns:
-      (E, Q, (2r+1)²) float32 taps, x-offset-major.
+      (E, Q, L·(2r+1)²) float32 taps, level-major, x-offset-major.
     """
-    _check_radius(radius)
-    _check_lookup_args(vol, coords)
-    E, h2, w2, _ = vol.shape
-    Q = coords.shape[1]
+    vols = _check_flat_args(vols, coords, radius)
+    E, Q = coords.shape[:2]
     rd = 2 * radius + 1
-    if h2 * w2 == 0 or Q == 0 or E == 0:
-        return coords.new_zeros((E, Q, rd * rd))
-
-    planes = vol.permute(0, 3, 1, 2)[:, :Q].reshape(E, Q, h2 * w2)
-    T, dx, dy = _gather_window(planes, coords, h2, w2, radius)
-    tx = (1.0 - dx) * T[..., :rd] + dx * T[..., 1:]              # (E,Q,8,7)
-    taps = (1.0 - dy) * tx[..., :rd, :] + dy * tx[..., 1:, :]    # [oy, ox]
-    return taps.transpose(-1, -2).reshape(E, Q, rd * rd)
+    outs = []
+    for l, vol in enumerate(vols):
+        h2, w2 = vol.shape[2:]
+        if h2 * w2 == 0 or Q == 0 or E == 0:
+            outs.append(coords.new_zeros((E, Q, rd * rd)))
+            continue
+        planes = vol[:, :Q].reshape(E, Q, h2 * w2)
+        T, dx, dy = _gather_window(planes, coords / (2.0 ** l), h2, w2,
+                                   radius)
+        outs.append(_separable_taps(T, dx, dy, radius))
+    return torch.cat(outs, dim=-1)
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+_PYRAMID_ARGTYPES = [
+    ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+    ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
 
-def lookup_flat_cuda(vol, coords, radius=RADIUS):
-    """Launch the CUDA lookup kernel (same contract as the reference)."""
-    _check_radius(radius)
-    _check_lookup_args(vol, coords)
-    if not vol.is_cuda:
-        raise ValueError("lookup_flat_cuda needs CUDA tensors")
+
+def _pyramid_args(levels):
+    """Contiguous levels (kept alive by the caller) and the leading C
+    arguments of a pyramid kernel: pointers, plane sizes, count, dtype."""
+    levels = [v.contiguous() for v in levels]
+    n = len(levels)
+    return levels, (
+        (ctypes.c_void_p * n)(*[v.data_ptr() for v in levels]),
+        (ctypes.c_int * n)(*[v.shape[-2] for v in levels]),
+        (ctypes.c_int * n)(*[v.shape[-1] for v in levels]),
+        n, _DTYPE_CODE[levels[0].dtype])
+
+
+def lookup_pyramid_flat_cuda(vols, coords, radius=RADIUS):
+    """Launch the serving lookup kernel, once for the whole pyramid
+    (contract of `lookup_pyramid_flat_reference`)."""
+    vols = _check_flat_args(vols, coords, radius)
+    if not coords.is_cuda:
+        raise ValueError("lookup_pyramid_flat_cuda needs CUDA tensors")
     from .cuda_build import load
 
     fn = load("corr_lookup").corr_lookup      # one object per library
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_void_p]
-    E, h2, w2, _ = vol.shape
-    Q = coords.shape[1]
-    coords = coords.contiguous()
-    out = torch.empty((E, Q, (2 * radius + 1) ** 2), device=vol.device,
-                      dtype=torch.float32)
+        fn.argtypes = _PYRAMID_ARGTYPES + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    E, Q = coords.shape[:2]
+    out = torch.empty((E, Q, len(vols) * (2 * radius + 1) ** 2),
+                      device=coords.device, dtype=torch.float32)
     if E * Q == 0:
         return out
-    se, sy, sx, sq = vol.stride()
-    stream = torch.cuda.current_stream(vol.device).cuda_stream
-    err = fn(vol.data_ptr(), _DTYPE_CODE[vol.dtype], coords.data_ptr(),
-             out.data_ptr(), E, Q, h2, w2, se, sy, sx, sq, stream)
+    vols, args = _pyramid_args(vols)
+    coords = coords.contiguous()
+    stream = torch.cuda.current_stream(coords.device).cuda_stream
+    err = fn(*args, coords.data_ptr(), out.data_ptr(), E * Q, Q,
+             vols[0].shape[1], stream)
     if err != 0:
         raise RuntimeError(f"corr_lookup kernel launch failed: CUDA error "
                            f"{err}")
@@ -176,22 +240,27 @@ def lookup_flat_cuda(vol, coords, radius=RADIUS):
     return out
 
 
-def lookup_flat(vol, coords, radius=RADIUS):
-    """Windowed lookup on a (E, h2, w2, Q) view: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    if vol.is_cuda:
-        return lookup_flat_cuda(vol, coords, radius)
-    if vol.device.type != "cpu":
-        raise ValueError(f"unsupported device {vol.device}")
-    return lookup_flat_reference(vol, coords, radius)
+def _on_cuda(t):
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
 
 
-def query_major_view(planes):
-    """(Q, h2, w2) or (E, Q, h2, w2) planes -> the (E, h2, w2, Q) strided
-    view `lookup_flat` takes (no copy)."""
-    if planes.ndim == 3:
-        planes = planes[None]
-    return planes.permute(0, 2, 3, 1)
+def lookup_pyramid_flat(vols, coords, radius=RADIUS):
+    """Pyramid lookup over query-major planes (contract of
+    `lookup_pyramid_flat_reference`): the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if _on_cuda(coords):
+        return lookup_pyramid_flat_cuda(vols, coords, radius)
+    return lookup_pyramid_flat_reference(vols, coords, radius)
+
+
+def lookup_flat(planes, coords, radius=RADIUS):
+    """One level: (E, Qv, h2, w2) planes, coords (E, Q, 2) in level units
+    -> (E, Q, (2r+1)²) taps."""
+    return lookup_pyramid_flat([planes], coords, radius)
 
 
 # ---------------------------------------------------------------------------
@@ -232,67 +301,57 @@ def build_pyramid(volume, num_levels=NUM_LEVELS):
 # ---------------------------------------------------------------------------
 
 
-def _check_level_args(volume_level, coords):
-    if volume_level.ndim != 6:
-        raise ValueError(f"volume_level must be (B, N, H, W, h2, w2), got "
-                         f"{tuple(volume_level.shape)}")
-    if tuple(coords.shape) != tuple(volume_level.shape[:4]) + (2,):
-        raise ValueError(f"coords must be {tuple(volume_level.shape[:4])} "
-                         f"+ (2,), got {tuple(coords.shape)}")
-    if volume_level.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"volume_level must be float32 or bfloat16, got "
-                        f"{volume_level.dtype}")
-    if coords.dtype != torch.float32:
-        raise TypeError(f"coords must be float32, got {coords.dtype}")
-    if coords.device != volume_level.device:
-        raise ValueError("volume_level and coords must be on one device")
-
-
-def _level_window(volume_level, coords, radius):
+def _check_level_args(pyramid, coords, radius):
     _check_radius(radius)
-    _check_level_args(volume_level, coords)
+    pyramid = _check_levels(pyramid, 4, "(B, N, H, W, h2, w2)")
+    _check_coords(coords, tuple(pyramid[0].shape[:4]) + (2,),
+                  pyramid[0].device)
+    return pyramid
+
+
+def _level_taps(volume_level, coords, radius, combine):
+    """One level's plain lookup: (B, N, H, W, h2, w2), coords in level
+    units -> (B, N, H, W, (2r+1)²) f32, windows combined by `combine`."""
     h2, w2 = volume_level.shape[-2:]
     Q = coords.numel() // 2
+    lead = tuple(coords.shape[:4])
     if Q == 0 or h2 * w2 == 0:
-        return None
-    return _gather_window(volume_level.reshape(Q, h2 * w2),
-                          coords.reshape(Q, 2), h2, w2, radius)
+        return coords.new_zeros(lead + ((2 * radius + 1) ** 2,))
+    T, dx, dy = _gather_window(volume_level.reshape(Q, h2 * w2),
+                               coords.reshape(Q, 2), h2, w2, radius)
+    return combine(T, dx, dy, radius).reshape(lead + (-1,))
+
+
+def lookup_pyramid_level_reference(pyramid, coords, radius=RADIUS):
+    """Plain PyTorch version of `lookup_pyramid_level_cuda`: the 8×8 window
+    of each query's plane at every level, combined with the four bilinear
+    corner weights.
+
+    Args:
+      pyramid: 1..4 levels of (B, N, H, W, h2_l, w2_l), level 0 first,
+        float32 or bfloat16.
+      coords: (B, N, H, W, 2) float32 [x, y] at level-0 resolution.
+    Returns:
+      (B, N, H, W, L·(2r+1)²) float32 taps, level-major, x-offset-major.
+    """
+    pyramid = _check_level_args(pyramid, coords, radius)
+    return torch.cat([_level_taps(vol, coords / (2.0 ** l), radius,
+                                  _corner_taps)
+                      for l, vol in enumerate(pyramid)], dim=-1)
 
 
 def lookup_level_reference(volume_level, coords, radius=RADIUS):
-    """Plain PyTorch version of `lookup_level_cuda`: the 8×8 window of
-    each query's plane, combined with the four bilinear corner weights.
-
-    Args:
-      volume_level: (B, N, H, W, h2, w2) float32 or bfloat16.
-      coords: (B, N, H, W, 2) float32 [x, y] in level units.
-    Returns:
-      (B, N, H, W, (2r+1)²) float32 taps, x-offset-major.
-    """
-    rd = 2 * radius + 1
-    win = _level_window(volume_level, coords, radius)
-    if win is None:
-        return coords.new_zeros(coords.shape[:4] + (rd * rd,))
-    T, dx, dy = win
-    taps = ((1.0 - dx) * (1.0 - dy) * T[..., :rd, :rd]
-            + dx * (1.0 - dy) * T[..., :rd, 1:]
-            + (1.0 - dx) * dy * T[..., 1:, :rd]
-            + dx * dy * T[..., 1:, 1:])                          # [oy, ox]
-    return taps.transpose(-1, -2).reshape(coords.shape[:4] + (rd * rd,))
+    """One level of `lookup_pyramid_level_reference`: coords in level
+    units -> (B, N, H, W, (2r+1)²) taps."""
+    return lookup_pyramid_level_reference([volume_level], coords, radius)
 
 
 def lookup_level_v2_reference(volume_level, coords, radius=RADIUS):
     """Plain PyTorch version of `lookup_level_v2_cuda` (same contract as
     `lookup_level_reference`): the window rows blended along x, then
     neighbouring rows blended along y."""
-    rd = 2 * radius + 1
-    win = _level_window(volume_level, coords, radius)
-    if win is None:
-        return coords.new_zeros(coords.shape[:4] + (rd * rd,))
-    T, dx, dy = win
-    tx = (1.0 - dx) * T[..., :rd] + dx * T[..., 1:]              # (Q,8,7)
-    taps = (1.0 - dy) * tx[..., :rd, :] + dy * tx[..., 1:, :]    # [oy, ox]
-    return taps.transpose(-1, -2).reshape(coords.shape[:4] + (rd * rd,))
+    _check_level_args([volume_level], coords, radius)
+    return _level_taps(volume_level, coords, radius, _separable_taps)
 
 
 def _check_backward_args(grad_taps, coords, radius):
@@ -352,12 +411,12 @@ def _level_lib():
 
     lib = load("corr_lookup_level")
     if lib.lookup_level_fwd.argtypes is None:
-        fwd = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-               ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p]
-        for fn in (lib.lookup_level_fwd, lib.lookup_level_v2_fwd):
-            fn.restype = ctypes.c_int
-            fn.argtypes = fwd
+        lib.lookup_level_fwd.restype = ctypes.c_int
+        lib.lookup_level_fwd.argtypes = _PYRAMID_ARGTYPES + [ctypes.c_void_p]
+        lib.lookup_level_v2_fwd.restype = ctypes.c_int
+        lib.lookup_level_v2_fwd.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.lookup_level_bwd.restype = ctypes.c_int
         lib.lookup_level_bwd.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -365,11 +424,42 @@ def _level_lib():
     return lib
 
 
-def _launch_level_forward(name, volume_level, coords, radius):
-    _check_radius(radius)
-    _check_level_args(volume_level, coords)
+def lookup_pyramid_level_cuda(pyramid, coords, radius=RADIUS):
+    """Launch the four-corner lookup kernel, once for the whole pyramid
+    (contract of `lookup_pyramid_level_reference`)."""
+    pyramid = _check_level_args(pyramid, coords, radius)
+    if not coords.is_cuda:
+        raise ValueError("lookup_level_fwd needs CUDA tensors")
+    Q = coords.numel() // 2
+    out = torch.empty(
+        tuple(coords.shape[:4]) + (len(pyramid) * (2 * radius + 1) ** 2,),
+        device=coords.device, dtype=torch.float32)
+    if Q == 0:
+        return out
+    pyramid, args = _pyramid_args(pyramid)
+    coords = coords.contiguous()
+    stream = torch.cuda.current_stream(coords.device).cuda_stream
+    err = _level_lib().lookup_level_fwd(*args, coords.data_ptr(),
+                                        out.data_ptr(), Q, stream)
+    if err != 0:
+        raise RuntimeError(f"lookup_level_fwd kernel launch failed: CUDA "
+                           f"error {err}")
+    _LAUNCHES["lookup_level_fwd"] += 1
+    return out
+
+
+def lookup_level_cuda(volume_level, coords, radius=RADIUS):
+    """One level through `lookup_pyramid_level_cuda` (contract of
+    `lookup_level_reference`)."""
+    return lookup_pyramid_level_cuda([volume_level], coords, radius)
+
+
+def lookup_level_v2_cuda(volume_level, coords, radius=RADIUS):
+    """Launch the eight-lanes-per-query, separable lookup kernel (contract
+    of `lookup_level_v2_reference`)."""
+    volume_level, = _check_level_args([volume_level], coords, radius)
     if not volume_level.is_cuda:
-        raise ValueError(f"{name} needs CUDA tensors")
+        raise ValueError("lookup_level_v2_fwd needs CUDA tensors")
     h2, w2 = volume_level.shape[-2:]
     Q = coords.numel() // 2
     out_shape = tuple(coords.shape[:4]) + ((2 * radius + 1) ** 2,)
@@ -379,27 +469,14 @@ def _launch_level_forward(name, volume_level, coords, radius):
     vol = volume_level.contiguous()
     coords = coords.contiguous()
     stream = torch.cuda.current_stream(vol.device).cuda_stream
-    err = getattr(_level_lib(), name)(
+    err = _level_lib().lookup_level_v2_fwd(
         vol.data_ptr(), _DTYPE_CODE[vol.dtype], coords.data_ptr(),
         out.data_ptr(), Q, h2, w2, stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    _LAUNCHES[name] += 1
+        raise RuntimeError(f"lookup_level_v2_fwd kernel launch failed: CUDA "
+                           f"error {err}")
+    _LAUNCHES["lookup_level_v2_fwd"] += 1
     return out
-
-
-def lookup_level_cuda(volume_level, coords, radius=RADIUS):
-    """Launch the warp-per-query, four-corner lookup kernel (contract of
-    `lookup_level_reference`)."""
-    return _launch_level_forward("lookup_level_fwd", volume_level, coords,
-                                 radius)
-
-
-def lookup_level_v2_cuda(volume_level, coords, radius=RADIUS):
-    """Launch the eight-lanes-per-query, separable lookup kernel (contract
-    of `lookup_level_v2_reference`)."""
-    return _launch_level_forward("lookup_level_v2_fwd", volume_level, coords,
-                                 radius)
 
 
 def lookup_level_backward_cuda(grad_taps, coords, h2, w2, radius=RADIUS):
@@ -427,29 +504,61 @@ def lookup_level_backward_cuda(grad_taps, coords, h2, w2, radius=RADIUS):
     return out
 
 
-def _on_cuda(t):
-    if t.is_cuda:
-        return True
-    if t.device.type != "cpu":
-        raise ValueError(f"unsupported device {t.device}")
-    return False
+def _level_backward(grad_taps, coords, plane, radius, dtype):
+    """Gradient of one level's lookup with respect to its volume."""
+    fn = (lookup_level_backward_cuda if _on_cuda(grad_taps)
+          else lookup_level_backward_reference)
+    return fn(grad_taps.contiguous().float(), coords, *plane,
+              radius).to(dtype)
 
 
-class _LookupLevel(torch.autograd.Function):
-    """Differentiable level lookup: forward and backward are the CUDA
-    kernels for CUDA tensors and their plain versions for CPU tensors.
-    Coordinates get no gradient (training detaches them before the
-    lookup)."""
+def _refuse_coords_grad(coords):
+    if coords.requires_grad:
+        raise ValueError("the level lookup has no gradient with respect to "
+                         "coords: detach them first")
+
+
+class _LookupPyramid(torch.autograd.Function):
+    """Differentiable pyramid lookup, four-corner combine: the forward is
+    one launch of the CUDA kernel for CUDA tensors and the plain version
+    for CPU tensors; the backward runs the backward kernel (or its plain
+    version) once per level on that level's channels.  Coordinates get no
+    gradient (training detaches them before the lookup)."""
 
     @staticmethod
-    def forward(ctx, volume_level, coords, radius, v2):
-        if coords.requires_grad:
-            raise ValueError("the level lookup has no gradient with respect "
-                             "to coords: detach them first")
-        if _on_cuda(volume_level):
-            fn = lookup_level_v2_cuda if v2 else lookup_level_cuda
-        else:
-            fn = lookup_level_v2_reference if v2 else lookup_level_reference
+    def forward(ctx, coords, radius, *pyramid):
+        _refuse_coords_grad(coords)
+        fn = (lookup_pyramid_level_cuda if _on_cuda(coords)
+              else lookup_pyramid_level_reference)
+        ctx.save_for_backward(coords)
+        ctx.radius = radius
+        ctx.planes = [tuple(v.shape[-2:]) for v in pyramid]
+        ctx.vol_dtype = pyramid[0].dtype
+        return fn(pyramid, coords, radius)
+
+    @staticmethod
+    def backward(ctx, grad_taps):
+        coords, = ctx.saved_tensors
+        T = (2 * ctx.radius + 1) ** 2
+        grads = [
+            _level_backward(grad_taps[..., l * T:(l + 1) * T],
+                            coords / (2.0 ** l), plane, ctx.radius,
+                            ctx.vol_dtype)
+            if ctx.needs_input_grad[2 + l] else None
+            for l, plane in enumerate(ctx.planes)]
+        return (None, None, *grads)
+
+
+class _LookupLevelV2(torch.autograd.Function):
+    """Differentiable one-level lookup, separable blend (forward
+    `lookup_level_v2_cuda` or its plain version; backward as in
+    `_LookupPyramid`)."""
+
+    @staticmethod
+    def forward(ctx, volume_level, coords, radius):
+        _refuse_coords_grad(coords)
+        fn = (lookup_level_v2_cuda if _on_cuda(volume_level)
+              else lookup_level_v2_reference)
         ctx.save_for_backward(coords)
         ctx.radius = radius
         ctx.plane = tuple(volume_level.shape[-2:])
@@ -459,11 +568,8 @@ class _LookupLevel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_taps):
         coords, = ctx.saved_tensors
-        h2, w2 = ctx.plane
-        fn = (lookup_level_backward_cuda if _on_cuda(grad_taps)
-              else lookup_level_backward_reference)
-        grad = fn(grad_taps.contiguous().float(), coords, h2, w2, ctx.radius)
-        return grad.to(ctx.vol_dtype), None, None, None
+        return _level_backward(grad_taps, coords, ctx.plane, ctx.radius,
+                               ctx.vol_dtype), None, None
 
 
 LOOKUP_IMPLS = ("level", "level_v2", "flat")
@@ -485,49 +591,48 @@ def lookup_impl():
     return _lookup_impl
 
 
-def lookup_level_flat(volume_level, coords, radius=RADIUS):
-    """The level lookup through `lookup_flat` on a query-major view (the
-    serving kernel; no gradient)."""
-    B, N, H, W, h2, w2 = volume_level.shape
-    Q = B * N * H * W
-    planes = volume_level.reshape(Q, h2, w2)
-    taps = lookup_flat(query_major_view(planes), coords.reshape(1, Q, 2),
-                       radius)
-    return taps.reshape(B, N, H, W, -1)
+def lookup_pyramid_as_flat(pyramid, coords, radius=RADIUS):
+    """The 6-D pyramid lookup through `lookup_pyramid_flat`, every level's
+    planes as one edge (the serving kernel; no gradient)."""
+    lead = tuple(coords.shape[:4])
+    Q = coords.numel() // 2
+    taps = lookup_pyramid_flat(
+        [v.reshape((1, Q) + tuple(v.shape[-2:])) for v in pyramid],
+        coords.reshape(1, Q, 2), radius)
+    return taps.reshape(lead + (-1,))
+
+
+def _impl(impl):
+    impl = _lookup_impl if impl is None else impl
+    if impl not in LOOKUP_IMPLS:
+        raise ValueError(f"unknown lookup impl {impl!r}")
+    return impl
 
 
 def lookup_level(volume_level, coords, radius=RADIUS, impl=None):
     """(B, N, H, W, h2, w2) level, coords (B, N, H, W, 2) in level units
     -> (B, N, H, W, (2r+1)²) taps, by route `impl` (default: the one
     `set_lookup_impl` chose)."""
-    impl = _lookup_impl if impl is None else impl
-    if impl not in LOOKUP_IMPLS:
-        raise ValueError(f"unknown lookup impl {impl!r}")
+    impl = _impl(impl)
     if impl == "flat":
-        return lookup_level_flat(volume_level, coords, radius)
-    return _LookupLevel.apply(volume_level, coords, radius,
-                              impl == "level_v2")
+        return lookup_pyramid_as_flat([volume_level], coords, radius)
+    if impl == "level_v2":
+        return _LookupLevelV2.apply(volume_level, coords, radius)
+    return _LookupPyramid.apply(coords, radius, volume_level)
 
 
 def lookup_pyramid(pyramid, coords, radius=RADIUS, impl=None):
     """Pyramid lookup, coords (B, N, H, W, 2) at level-0 resolution ->
-    (B, N, H, W, L·(2r+1)²) f32 (the update operator's corr input)."""
+    (B, N, H, W, L·(2r+1)²) f32 (the update operator's corr input).  The
+    "level" and "flat" routes are one launch for the whole pyramid;
+    "level_v2" goes level by level."""
+    impl = _impl(impl)
+    if impl == "level":
+        return _LookupPyramid.apply(coords, radius, *pyramid)
+    if impl == "flat":
+        return lookup_pyramid_as_flat(pyramid, coords, radius)
     outs = [lookup_level(vol, coords / (2.0 ** l), radius, impl)
             for l, vol in enumerate(pyramid)]
-    return torch.cat(outs, dim=-1)
-
-
-def lookup_pyramid_flat(vols, coords, radius=RADIUS):
-    """Pyramid lookup over cached query-last volumes.
-
-    Args:
-      vols: list of (E, h2_l, w2_l, Q) volumes, level 0 first.
-      coords: (E, Q, 2) float32 [x, y] at level-0 resolution.
-    Returns:
-      (E, Q, L·(2r+1)²) f32 taps, level-major channel order.
-    """
-    outs = [lookup_flat(v, coords / (2.0 ** l), radius)
-            for l, v in enumerate(vols)]
     return torch.cat(outs, dim=-1)
 
 
@@ -536,54 +641,44 @@ def lookup_pyramid_flat(vols, coords, radius=RADIUS):
 # ---------------------------------------------------------------------------
 
 
-def alt_lookup_level(fmap1, fmap2_level, coords, radius=RADIUS,
-                     pixel_chunk=0):
-    """On-the-fly correlation taps for one level.
-
-    Args:
-      fmap1: (E, H, W, C) level-0 source features (already /4).
-      fmap2_level: (E, h2, w2, C) pooled target features (already /4).
-      coords: (E, H, W, 2) float [x, y] in level units.
-      pixel_chunk: if > 0, build the volume for blocks of this many query
-        pixels, so the transient is O(E · pixel_chunk · h2·w2).
-    Returns:
-      (E, H, W, (2r+1)²) f32 taps.
-
-    The block volume is an f32 matmul rounded to bf16 (as in the JAX
-    package), in query-major layout, looked up by `lookup_flat`.
-    """
-    E, H, W, C = fmap1.shape
-    h2, w2 = fmap2_level.shape[1:3]
-    HW = H * W
-    T = (2 * radius + 1) ** 2
-    f1 = fmap1.float().reshape(E, HW, C)
-    f2 = fmap2_level.float().reshape(E, h2 * w2, C)
-    cflat = coords.reshape(E, HW, 2).float()
-
-    def block_taps(f1_b, c_b):
-        vol = torch.bmm(f1_b, f2.transpose(1, 2)).to(torch.bfloat16)
-        vol = vol.reshape(E, f1_b.shape[1], h2, w2)
-        return lookup_flat(query_major_view(vol), c_b.contiguous(), radius)
-
-    if pixel_chunk <= 0 or pixel_chunk >= HW:
-        return block_taps(f1, cflat).reshape(E, H, W, T)
-    outs = [block_taps(f1[:, lo:lo + pixel_chunk],
-                       cflat[:, lo:lo + pixel_chunk])
-            for lo in range(0, HW, pixel_chunk)]
-    return torch.cat(outs, dim=1).reshape(E, H, W, T)
-
-
 def alt_lookup_pyramid(pyr1_l0, fmap2_pyramid, coords, radius=RADIUS,
                        pixel_chunk=0):
-    """Alt-corr over all levels; same channel layout as lookup_pyramid.
-    Pixel blocking applies where the level is large (h2·w2 > 1024)."""
+    """On-the-fly correlation taps over all levels; same channel layout as
+    `lookup_pyramid`.
+
+    Args:
+      pyr1_l0: (E, H, W, C) level-0 source features (already /4).
+      fmap2_pyramid: list of (E, h2_l, w2_l, C) pooled target features
+        (already /4), level 0 first.
+      coords: (E, H, W, 2) float [x, y] at level-0 resolution.
+      pixel_chunk: if > 0 and level 0 is large (h2·w2 > 1024), the volumes
+        are built for blocks of this many query pixels, so the transient
+        is O(E · pixel_chunk · Σ_l h2_l·w2_l).
+    Returns:
+      (E, H, W, L·(2r+1)²) f32 taps.
+
+    Each block's volumes are f32 matmuls rounded to bf16 (as in the JAX
+    package), query-major, looked up by one `lookup_pyramid_flat` call for
+    all levels.
+    """
+    E, H, W, C = pyr1_l0.shape
+    HW = H * W
+    f1 = pyr1_l0.float().reshape(E, HW, C)
+    planes = [tuple(f2.shape[1:3]) for f2 in fmap2_pyramid]
+    f2s = [f2.float().reshape(E, h2 * w2, C).transpose(1, 2)
+           for f2, (h2, w2) in zip(fmap2_pyramid, planes)]
+    cflat = coords.reshape(E, HW, 2).float()
+    big = planes[0][0] * planes[0][1] > 1024
+    step = pixel_chunk if (big and 0 < pixel_chunk < HW) else HW
     outs = []
-    for l, f2 in enumerate(fmap2_pyramid):
-        h2w2 = f2.shape[1] * f2.shape[2]
-        pc = pixel_chunk if (pixel_chunk > 0 and h2w2 > 1024) else 0
-        outs.append(alt_lookup_level(pyr1_l0, f2, coords / (2.0 ** l),
-                                     radius, pc))
-    return torch.cat(outs, dim=-1)
+    for lo in range(0, HW, step):
+        f1_b = f1[:, lo:lo + step]
+        vols = [torch.bmm(f1_b, f2).to(torch.bfloat16).reshape(
+            (E, f1_b.shape[1]) + plane) for f2, plane in zip(f2s, planes)]
+        outs.append(lookup_pyramid_flat(
+            vols, cflat[:, lo:lo + step].contiguous(), radius))
+    taps = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return taps.reshape(E, H, W, -1)
 
 
 def gate_corr_pyramid(pyr1_l0, fmap2_pyramid, radius=RADIUS):

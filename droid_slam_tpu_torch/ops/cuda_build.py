@@ -2,9 +2,9 @@
 
 Every `csrc/<name>.cu` file is compiled by `nvcc` into its own shared
 library with a plain C interface (no PyTorch headers: seconds to build)
-and loaded with ctypes.  Builds go to `csrc/build/` (ignored by git) at
+and loaded with ctypes; `csrc/*.cuh` are headers the sources share.  Builds go to `csrc/build/` (ignored by git) at
 first use: the first `load` compiles every source that is missing or
-older than its source file, one `nvcc` process per source, all started
+older than its source file or a header, one `nvcc` process per source, all started
 together.  Nothing here runs at import time.
 """
 
@@ -51,7 +51,9 @@ def _paths(name):
 
 def _stale(name):
     src, lib = _paths(name)
-    return not osp.isfile(lib) or osp.getmtime(lib) < osp.getmtime(src)
+    deps = [src] + glob.glob(osp.join(CSRC, "*.cuh"))
+    return (not osp.isfile(lib)
+            or osp.getmtime(lib) < max(osp.getmtime(d) for d in deps))
 
 
 def _build(names):

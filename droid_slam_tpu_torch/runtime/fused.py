@@ -199,16 +199,16 @@ def volume_cache_fits(cfg, EA, ht, wd):
 
 def edge_volumes(fmaps, ii, jj):
     """Per-edge correlation-volume pyramid in the lookup kernel's
-    query-last layout: list of (E, h2_l, w2_l, h·w) bf16, each an f32
-    matmul rounded to bf16."""
+    query-major layout: list of (E, h·w, h2_l, w2_l) bf16 — a query's
+    plane is contiguous — each an f32 matmul rounded to bf16."""
     E, _, h, w, C = fmaps[ii].shape
     f1 = fmaps[ii, 0].float().reshape(E, h * w, C) / 4.0
     vols = []
     for p in pool_pyramid(fmaps[jj, 0]):
         h2, w2 = p.shape[1:3]
         f2 = p.float().reshape(E, h2 * w2, C) / 4.0
-        v = torch.bmm(f2, f1.transpose(1, 2)).to(torch.bfloat16)
-        vols.append(v.reshape(E, h2, w2, h * w))
+        v = torch.bmm(f1, f2.transpose(1, 2)).to(torch.bfloat16)
+        vols.append(v.reshape(E, h * w, h2, w2))
     return vols
 
 

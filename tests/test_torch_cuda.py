@@ -15,15 +15,6 @@ import torch
 from droid_slam_tpu_torch.ops import corr as tcorr
 
 
-def _mk(seed, E, HW, h2, w2):
-    rng = np.random.default_rng(seed)
-    vol = rng.standard_normal((E, HW, h2, w2)).astype(np.float32)
-    coords = np.stack([rng.uniform(-4, w2 + 4, (E, HW)),
-                       rng.uniform(-4, h2 + 4, (E, HW))], -1).astype(
-        np.float32)
-    return vol, coords
-
-
 def _to_cuda(v):
     """A GraphState field on the card (tensors) or copied (host arrays)."""
     if torch.is_tensor(v):
@@ -96,23 +87,41 @@ def test_keyframe_steps_cuda_match_cpu(seed):
                for e in errs), errs
 
 
+# (E, Q, planes per edge, h2, w2, levels): the serving shapes (bf16 planes
+# of 30x40 halved three times, odd sizes 7x10 and 3x5), one level, query
+# counts that do not fill the four queries a warp serves, and edges that
+# hold more planes than they have queries
+FLAT_CASES = [(64, 1200, 1200, 30, 40, 4), (3, 301, 301, 15, 20, 1),
+              (2, 37, 40, 7, 10, 2), (1, 5, 5, 3, 5, 1),
+              (5, 63, 64, 30, 40, 3)]
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_matches_reference():
-    """The CUDA kernel vs its plain version on the card, both layouts,
-    f32 and bf16 volumes: identical f32 arithmetic (the kernel avoids FMA
-    contraction), so atol=rtol=1e-5 is loose."""
+@pytest.mark.parametrize("case", FLAT_CASES)
+def test_cuda_kernel_matches_reference(case):
+    """The serving pyramid kernel vs its plain version on the card, f32
+    and bf16 volumes, border windows and far-out queries: identical f32
+    arithmetic in the same order (the kernel avoids FMA contraction), so
+    the taps are equal bit for bit; one launch per pyramid."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
+    E, Q, Qv, h2, w2, levels = case
+    rng = np.random.default_rng(sum(case))
+    coords = np.stack([rng.uniform(-5, w2 + 5, (E, Q)),
+                       rng.uniform(-5, h2 + 5, (E, Q))], -1)
+    coords[rng.random((E, Q)) < 0.05] = -1e4
+    c = torch.from_numpy(coords.astype(np.float32)).cuda()
     for dtype in (torch.float32, torch.bfloat16):
-        vol, coords = _mk(9, 4, 300, 15, 20)
-        vq = torch.from_numpy(vol).cuda().to(dtype)
-        c = torch.from_numpy(coords).cuda()
-        for view in (vq.permute(0, 2, 3, 1).contiguous(),
-                     tcorr.query_major_view(vq)):
-            got = tcorr.lookup_flat_cuda(view, c)
-            want = tcorr.lookup_flat_reference(view, c)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        vols = [torch.from_numpy(rng.standard_normal(
+            (E, Qv, h2 >> l, w2 >> l)).astype(np.float32)).cuda().to(dtype)
+            for l in range(levels)]
+        tcorr.reset_launch_counts()
+        got = tcorr.lookup_pyramid_flat(vols, c)
+        assert tcorr.launch_counts()["corr_lookup"] == 1
+        want = tcorr.lookup_pyramid_flat_reference(vols, c)
+        torch.cuda.synchronize()
+        assert got.shape == (E, Q, 49 * levels)
+        assert torch.equal(got, want), float((got - want).abs().max())
 
 
 def _mk_level(seed, shape, oob=0.05, dtype=torch.float32):
@@ -156,6 +165,72 @@ def test_level_forward_kernels_match_reference(name):
             torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+# (leading shape, h2, w2, levels): the training shapes (f32 planes of 48x64
+# halved three times), one level, odd plane sizes, query counts that do
+# not fill the four queries a warp serves
+LEVEL_PYRAMIDS = [((1, 40, 48, 64), 48, 64, 4), ((1, 3, 3, 5), 7, 10, 2),
+                  ((2, 1, 1, 3), 3, 5, 1), ((1, 1, 5, 7), 15, 20, 3)]
+
+
+def _mk_level_pyramid(seed, lead, h2, w2, levels, dtype=torch.float32):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pyr = [torch.randn(lead + (h2 >> l, w2 >> l), device="cuda",
+                       generator=gen).to(dtype) for l in range(levels)]
+    rng = np.random.default_rng(seed)
+    coords = np.stack([rng.uniform(-5, w2 + 5, lead),
+                       rng.uniform(-5, h2 + 5, lead)], -1)
+    coords[rng.random(lead) < 0.05] = -1e4
+    return pyr, torch.from_numpy(coords.astype(np.float32)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LEVEL_PYRAMIDS)
+def test_level_pyramid_kernel_matches_reference(case):
+    """The training pyramid kernel vs its plain version on the card, f32
+    and bf16 pyramids: the plain version's f32 operations in its order
+    without FMA contraction, so the taps are equal bit for bit; one launch
+    per pyramid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    lead, h2, w2, levels = case
+    for dtype in (torch.float32, torch.bfloat16):
+        pyr, coords = _mk_level_pyramid(levels, lead, h2, w2, levels, dtype)
+        tcorr.reset_launch_counts()
+        got = tcorr.lookup_pyramid(pyr, coords, impl="level")
+        assert tcorr.launch_counts()["lookup_level_fwd"] == 1
+        want = tcorr.lookup_pyramid_level_reference(pyr, coords)
+        torch.cuda.synchronize()
+        assert got.shape == lead + (49 * levels,)
+        assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LEVEL_PYRAMIDS[1:])
+def test_level_pyramid_gradient_matches_autograd(case):
+    """Gradient through the pyramid autograd.Function on the card (one
+    forward launch, one backward launch per level) vs autograd through the
+    plain pyramid version: 1e-5 absolute on unit-scale gradients, 1e-4
+    relative (other summation order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    lead, h2, w2, levels = case
+    pyr, coords = _mk_level_pyramid(levels + 7, lead, h2, w2, levels)
+    g = torch.randn(lead + (49 * levels,), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    a = [v.clone().requires_grad_(True) for v in pyr]
+    tcorr.reset_launch_counts()
+    tcorr.lookup_pyramid(a, coords, impl="level").backward(g)
+    counts = tcorr.launch_counts()
+    live = sum(v.numel() > 0 for v in pyr)
+    assert counts["lookup_level_fwd"] == 1
+    assert counts["lookup_level_bwd"] == live
+    b = [v.clone().requires_grad_(True) for v in pyr]
+    auto = torch.autograd.grad(
+        tcorr.lookup_pyramid_level_reference(b, coords), b, g)
+    for x, y in zip(a, auto):
+        torch.testing.assert_close(x.grad, y, atol=1e-5, rtol=1e-4)
+
+
 @pytest.mark.cuda
 def test_level_backward_kernel_matches_reference_and_autograd():
     """The backward kernel vs its plain version (same operation order:
@@ -195,9 +270,10 @@ def test_accumulate_step_cuda_matches_cpu(impl, monkeypatch):
     off) vs the CPU path (plain versions), shipped weights, 4 frames of
     64×96, 2 iterations, grad_clip's 0.01 threshold lifted so that no
     element flips across it: loss within 1e-4 relative, the gradient
-    tree within 0.5% of its norm (f32 sums in another order).  Each
-    forward lookup and each backward launches its kernel: 2 iterations ×
-    4 levels."""
+    tree within 0.5% of its norm (f32 sums in another order).  Every
+    lookup launches its kernels: under "level" one forward per iteration
+    (the whole pyramid), under "level_v2" one per level; the backward one
+    per iteration and level (2 iterations × 4 levels)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     import os.path as osp
@@ -239,9 +315,11 @@ def test_accumulate_step_cuda_matches_cpu(impl, monkeypatch):
                         tcorr.launch_counts())
     finally:
         tcorr.set_lookup_impl("level")
-    fwd = "lookup_level_fwd" if impl == "level" else "lookup_level_v2_fwd"
+    fwd, n_fwd = (("lookup_level_fwd", 2) if impl == "level"
+                  else ("lookup_level_v2_fwd", 8))
     assert not any(out["cpu"][2].values())
-    assert out["cuda"][2][fwd] == 8 and out["cuda"][2]["lookup_level_bwd"] == 8
+    assert out["cuda"][2][fwd] == n_fwd
+    assert out["cuda"][2]["lookup_level_bwd"] == 8
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
     num = sum(((out["cuda"][1][k] - v) ** 2).sum()
               for k, v in out["cpu"][1].items())

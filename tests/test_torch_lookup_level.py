@@ -1,7 +1,8 @@
-"""The training path's level lookups: each plain PyTorch version against
-the Pallas kernel it stands for (run in interpret mode, as
-tests/test_corr_pallas.py runs them), the backward against jax.grad of
-the JAX lookup, and the routing of `lookup_level`."""
+"""The training path's lookups: each plain PyTorch version against the
+Pallas kernel it stands for (run in interpret mode, as
+tests/test_corr_pallas.py runs them), the one-call pyramid version against
+its levels and the JAX pyramid lookup, the backward against jax.grad of
+the JAX lookup, and the routing of `lookup_level` / `lookup_pyramid`."""
 
 import jax
 import jax.numpy as jnp
@@ -122,6 +123,99 @@ def test_lookup_level_function_gradient(impl):
     assert not any(tcorr.launch_counts().values())
     with pytest.raises(ValueError, match="coords"):
         tcorr.lookup_level(v, coords.clone().requires_grad_(True), impl=impl)
+
+
+def _mk_pyramid(seed, lead, h2, w2, levels, dtype=torch.float32):
+    """`levels` 6-D levels (plane sizes halved, floored) and level-0 coords
+    with border windows and a few far-out queries."""
+    rng = np.random.default_rng(seed)
+    pyr = [torch.from_numpy(rng.standard_normal(
+        lead + (h2 >> l, w2 >> l)).astype(np.float32)).to(dtype)
+        for l in range(levels)]
+    coords = np.stack([rng.uniform(-5, w2 + 5, lead),
+                       rng.uniform(-5, h2 + 5, lead)], -1).astype(np.float32)
+    coords.reshape(-1, 2)[::13] = -1e4
+    return pyr, torch.from_numpy(coords)
+
+
+# (leading shape, h2, w2, levels): one level and four; odd plane sizes
+# (7x10 halves to 3x5); query counts that are not a multiple of the four
+# queries a warp of the kernel serves
+LEVEL_PYRAMIDS = [((1, 2, 6, 8), 24, 32, 4), ((1, 3, 3, 5), 7, 10, 2),
+                  ((2, 1, 1, 3), 3, 5, 1), ((1, 1, 5, 7), 15, 20, 3)]
+
+
+@pytest.mark.parametrize("case", LEVEL_PYRAMIDS)
+def test_pyramid_reference_matches_pallas_and_jax(case):
+    """The plain pyramid version, level by level against
+    `lookup_level_pallas` in interpret mode and as a whole against the JAX
+    package's `lookup_pyramid`: 5e-6 on f32 volumes (same products, summed
+    in another order)."""
+    lead, h2, w2, levels = case
+    pyr, coords = _mk_pyramid(h2 + levels, lead, h2, w2, levels)
+    got = tcorr.lookup_pyramid_level_reference(pyr, coords).numpy()
+    assert got.shape == lead + (49 * levels,)
+    for l, vol in enumerate(pyr):
+        want = _pallas(corr_pallas.lookup_level_pallas,
+                       jnp.asarray(vol.numpy()),
+                       jnp.asarray(coords.numpy() / np.float32(2 ** l)))
+        np.testing.assert_allclose(got[..., 49 * l:49 * (l + 1)], want,
+                                   atol=5e-6, rtol=5e-6)
+    want = np.asarray(jcorr.lookup_pyramid(
+        [jnp.asarray(v.numpy()) for v in pyr], jnp.asarray(coords.numpy())))
+    np.testing.assert_allclose(got, want, atol=5e-6, rtol=5e-6)
+
+
+@pytest.mark.parametrize("case", LEVEL_PYRAMIDS)
+def test_pyramid_equals_levels_concatenated(case):
+    """`lookup_pyramid` under "level" equals the per-level lookups at
+    coords / 2^l concatenated, bit for bit, and so does its gradient: the
+    backward runs once per level on that level's 49 channels."""
+    lead, h2, w2, levels = case
+    pyr, coords = _mk_pyramid(h2 + levels + 1, lead, h2, w2, levels)
+    g = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        lead + (49 * levels,)).astype(np.float32))
+    a = [v.clone().requires_grad_(True) for v in pyr]
+    b = [v.clone().requires_grad_(True) for v in pyr]
+    got = tcorr.lookup_pyramid(a, coords, impl="level")
+    want = torch.cat([tcorr.lookup_level(v, coords / 2 ** l, impl="level")
+                      for l, v in enumerate(b)], dim=-1)
+    np.testing.assert_array_equal(got.detach().numpy(),
+                                  want.detach().numpy())
+    got.backward(g)
+    want.backward(g)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.grad.numpy(), y.grad.numpy())
+
+
+def test_pyramid_function_gradient_matches_autograd():
+    """The pyramid autograd.Function on CPU tensors: its gradient is
+    autograd's gradient of the plain pyramid forward (1e-5, summation
+    order), levels that ask for no gradient get none, a bf16 pyramid gets
+    bf16 gradients, and no kernel launch is counted."""
+    pyr, coords = _mk_pyramid(9, (1, 2, 4, 6), 12, 16, 4)
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 2, 4, 6, 196)).astype(np.float32))
+    tcorr.reset_launch_counts()
+    a = [v.clone().requires_grad_(l != 2) for l, v in enumerate(pyr)]
+    tcorr.lookup_pyramid(a, coords, impl="level").backward(g)
+    b = [v.clone().requires_grad_(True) for v in pyr]
+    auto = torch.autograd.grad(
+        tcorr.lookup_pyramid_level_reference(b, coords), b, g)
+    for l, (x, y) in enumerate(zip(a, auto)):
+        if l == 2:
+            assert x.grad is None
+        else:
+            np.testing.assert_allclose(x.grad.numpy(), y.numpy(), atol=1e-5,
+                                       rtol=1e-5)
+    h = [v.to(torch.bfloat16).requires_grad_(True) for v in pyr]
+    tcorr.lookup_pyramid(h, coords, impl="level").backward(g)
+    assert all(v.grad.dtype == torch.bfloat16 for v in h)
+    assert not any(tcorr.launch_counts().values())
+    with pytest.raises(ValueError, match="coords"):
+        tcorr.lookup_pyramid(a, coords.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="CUDA"):
+        tcorr.lookup_pyramid_level_cuda(pyr, coords)
 
 
 def test_set_lookup_impl_routes_lookup_pyramid():

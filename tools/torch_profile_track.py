@@ -13,7 +13,9 @@ torch.profiler.  Prints one JSON line:
   * device_idle_share: 1 - busy / (first device start .. last device end);
   * launches: device events in the window, and per keyframe;
   * top: device time by kernel name, the 15 largest, with its share of
-    the busy time and its launch count.
+    the busy time and its launch count;
+  * lookup: device time, share of the busy time and launch count of each
+    of the package's own lookup kernels that ran.
 
 The profiler's own overhead stretches the host side, so window_ms and the
 idle share are upper bounds of the unprofiled run's.  Needs a CUDA card.
@@ -33,6 +35,9 @@ sys.path.insert(0, ROOT)
 FRAMES = 80     # the sequence of chip_smoke.py
 SKIP = 40       # frames tracked before the profiled window
 TOP = 15        # kernels listed
+# the package's own kernels (csrc/), by the name of their entry point
+LOOKUP_KERNELS = ("corr_lookup", "lookup_level_fwd", "lookup_level_v2_fwd",
+                  "lookup_level_bwd")
 
 
 def union_ms(intervals):
@@ -50,8 +55,8 @@ def union_ms(intervals):
 
 def device_summary(prof):
     """Device-side totals of a finished torch.profiler run: busy time
-    (union of kernel and copy intervals), span, idle share, launch count
-    and the TOP kernels by device time."""
+    (union of kernel and copy intervals), span, idle share, launch count,
+    the TOP kernels by device time and the package's own lookup kernels."""
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = [(e.time_range.start, e.time_range.end) for e in dev]
@@ -63,7 +68,15 @@ def device_summary(prof):
         by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
         by_name[e.name][1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    lookup = {}
+    for k in LOOKUP_KERNELS:
+        own = [v for n, v in by_name.items() if k + "_kernel" in n]
+        if own:
+            ms = sum(v[0] for v in own)
+            lookup[k] = dict(ms=ms, share=ms / busy if busy else 0,
+                             count=sum(v[1] for v in own))
     return dict(
+        lookup=lookup,
         device_busy_ms=busy, device_span_ms=span,
         device_idle_share=(1.0 - busy / span) if span > 0 else None,
         launches=len(dev),

@@ -9,9 +9,9 @@ autotuning) and a second one under torch.profiler, from a seeded
 initialisation with the "level" lookup.  Prints one JSON line:
 
   * window_ms: host time of the profiled step (ends in a synchronize);
-  * device_busy_ms / device_span_ms / device_idle_share / launches / top:
-    as tools/torch_profile_track.py reports them;
-  * lookup_ms: device time of the three lookup kernels in the step.
+  * device_busy_ms / device_span_ms / device_idle_share / launches / top /
+    lookup (device time of the three lookup kernels in the step): as
+    tools/torch_profile_track.py reports them.
 
 The profiler's own overhead stretches the host side, so window_ms and the
 idle share are upper bounds of the unprofiled run's.  Needs a CUDA card.
@@ -77,20 +77,8 @@ def main():
         window_ms = (time.time() - t) * 1e3
 
     summary = device_summary(prof)
-    lookup_ms = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and "lookup_level" in e.name:
-            key = next(k for k in ("lookup_level_v2_fwd", "lookup_level_fwd",
-                                   "lookup_level_bwd") if k in e.name)
-            ms, n = lookup_ms.get(key, (0.0, 0))
-            lookup_ms[key] = (
-                ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
     out = dict(device=torch.cuda.get_device_name(0), loss=loss,
-               window_ms=window_ms,
-               lookup_ms={k: dict(ms=v[0], count=v[1])
-                          for k, v in lookup_ms.items()},
-               **summary)
+               window_ms=window_ms, **summary)
     print(json.dumps(out), flush=True)
     return 0
 
