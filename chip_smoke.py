@@ -14,28 +14,45 @@
    a. The serving lookup at the shapes of the 240×320 main path (64
       edges, 4 pyramid levels of bf16 query-major planes), one launch
       per pyramid.
-   b. The training lookups (the one-launch pyramid schedule and the
-      per-level second schedule) and their backward at the shapes of
-      `TrainConfig()` (40 edge slots, 48×64 queries, 4 levels of an f32
-      pyramid); the backward also against torch.autograd.grad through
-      the plain forwards.
-   Times are per 4-level pyramid; a kernel that serves one level per
-   launch is timed level by level and summed (a one-launch kernel has no
-   per-level time; its levels list the bound and the library call).
-3. Serving main path: `Droid(SLAMConfig())` with the shipped weights
-   tracks 80 frames of a synthetic textured-box sequence one by one and
-   terminates (global BA + trajectory fill); launch counts are reset just
-   before and read just after.  Prints keyframes, tracking rate,
-   terminate time, ATE after Sim(3) alignment (must stay under 10% of the
-   path length), peak device memory.
+   b. The training lookups (two combines on the one-launch pyramid
+      schedule, each also level by level in its one-level form) and their
+      backward at the shapes of `TrainConfig()` (40 edge slots, 48×64
+      queries, 4 levels of an f32 pyramid); the backward also against
+      torch.autograd.grad through the plain forwards.
+   Times are per 4-level pyramid; the backward serves one level per
+   launch and is timed level by level and summed (a one-launch kernel
+   has no per-level time; its levels list the bound and the library
+   call).
+3. Serving paths, each with the shipped weights, tracking a synthetic
+   textured-box sequence frame by frame and terminating (global BA +
+   trajectory fill); launch counts are reset just before each and read
+   just after.  Each prints frames, filter passes, keyframes, tracking
+   rate, terminate time, ATE after Sim(3) alignment (must stay under 10%
+   of the path length), the alignment's scale, the path length, lookup
+   launches and peak device memory:
+   a. mono main path: `Droid(SLAMConfig())`, 80 frames at 240×320;
+   b. stereo: `PRESETS["euroc"]` with `stereo=True`, 60 stereo pairs at
+      320×512 (right camera 0.1 along the left one's x axis); also prints
+      the ii == jj edges of the frontend graph and raises if there was
+      none.  Then holds the serving lookup kernel against its plain
+      version at this path's shapes, on the run's own features and poses:
+      the on-the-fly volumes of the frontend edges at the frame with the
+      most ii == jj edges (those read the right camera), in the keyframe
+      step's 512-pixel query blocks, each block against the plain version
+      and the path's `edge_correlation` against the kernel's taps;
+   c. RGB-D: `PRESETS["eth3d"]` with `upsample=True`, 60 frames at 240×320
+      with their exact depths; also prints how many keyframes' `disps_up`
+      were written (raises if none) and their median relative inverse-
+      depth error, and raises unless the alignment's scale is within 0.1
+      of 1 (the depth prior fixes metric scale).
 4. Training main path at the full width of `TrainConfig()` (384×512, 7
    frames, 15 iterations, 40 edge slots, f32): `train(...)` for a few
    optimizer steps from a seeded initialisation on a small synthetic
    curriculum, then timed accumulate/apply steps on one fixed batch under
    both lookup schedules.  Launch counts are reset just before and read
    just after.  Raises unless every loss and gradient norm is finite,
-   every training kernel was launched (the default schedule once per
-   pyramid forward, once per level backward), and the shipped weights
+   every training kernel was launched (either schedule once per pyramid
+   forward, once per level backward), and the shipped weights
    reach a lower loss on the fixed batch than the seeded initialisation.  Prints
    step time, peak memory and launches per step.
 5. Prints the card's name and power limit, one {"kernels": [...]} line,
@@ -63,8 +80,9 @@ F32_FLOPS_PER_S = 67e12
 # y-blends, two products and one sum each
 LOOKUP_FLOPS_PER_QUERY = (8 * 7 + 49) * 3
 RADIUS = 3
-# frames of the serving main-path phase
+# frames of the serving phases: mono, and each of stereo and RGB-D
 FRAMES = 80
+FRAMES_STEREO_RGBD = 60
 # the training main path: optimizer steps `train` takes, scenes it renders
 TRAIN_STEPS = 3
 TRAIN_SCENES = 3
@@ -224,9 +242,10 @@ def level_kernel_phase(corr):
     """The training lookups and their backward at TrainConfig() shapes."""
     from droid_slam_tpu_torch.ops.corr import (
         lookup_level_backward_cuda, lookup_level_backward_reference,
-        lookup_level_reference, lookup_level_v2_cuda,
+        lookup_level_cuda, lookup_level_reference, lookup_level_v2_cuda,
         lookup_level_v2_reference, lookup_pyramid_level_cuda,
-        lookup_pyramid_level_reference)
+        lookup_pyramid_level_reference, lookup_pyramid_level_v2_cuda,
+        lookup_pyramid_level_v2_reference)
 
     E, h, w = 40, 48, 64                       # 384x512 at 1/8
     Q = E * h * w
@@ -238,34 +257,33 @@ def level_kernel_phase(corr):
     coords0 = flow_coords(rng, E, h, w)[None]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms",
             "max_abs_err")
-    names = ("lookup_level_fwd", "lookup_level_v2_fwd", "lookup_level_bwd")
+    # forward kernel -> (pyramid wrapper, its plain version, one-level
+    # wrapper, its plain version)
+    forwards = {
+        "lookup_level_fwd": (lookup_pyramid_level_cuda,
+                             lookup_pyramid_level_reference,
+                             lookup_level_cuda, lookup_level_reference),
+        "lookup_level_v2_fwd": (lookup_pyramid_level_v2_cuda,
+                                lookup_pyramid_level_v2_reference,
+                                lookup_level_v2_cuda,
+                                lookup_level_v2_reference)}
+    names = tuple(forwards) + ("lookup_level_bwd",)
     report = {n: dict({k: 0.0 for k in keys}, levels=[]) for n in names}
     report["lookup_level_bwd"]["autograd_max_abs_err"] = 0.0
 
-    def add(name, lvl, shape, ms, plain, lib, nbytes, ops, err):
-        row = dict(level=lvl, shape=shape, ms=ms, plain_ms=plain,
-                   library_ms=lib, **bound_row(nbytes, ops))
-        rep = report[name]
-        rep["levels"].append(row)
-        for k in keys[:-1]:
-            rep[k] += row[k]
-        rep["max_abs_err"] = max(rep["max_abs_err"], err)
-
-    # the whole pyramid in one launch
-    got = lookup_pyramid_level_cuda(pyramid, coords0)
-    want = lookup_pyramid_level_reference(pyramid, coords0)
-    rep = report["lookup_level_fwd"]
-    rep["max_abs_err"] = check_equal(got, want)
-    del got, want
-    rep.update(bound_row(
+    # each forward: the whole pyramid in one launch
+    fwd_bound = bound_row(
         pyramid_bytes(coords0, [v.shape[-2:] for v in pyramid],
                       pyramid[0].element_size()),
-        4 * Q * LOOKUP_FLOPS_PER_QUERY))
-    rep["ms"] = cuda_time_ms(
-        lambda: lookup_pyramid_level_cuda(pyramid, coords0))
-    rep["plain_ms"] = cuda_time_ms(
-        lambda: lookup_pyramid_level_reference(pyramid, coords0), reps=3,
-        batches=3)
+        4 * Q * LOOKUP_FLOPS_PER_QUERY)
+    for name, (kern, plain, _, _) in forwards.items():
+        rep = report[name]
+        rep["max_abs_err"] = check_equal(kern(pyramid, coords0),
+                                         plain(pyramid, coords0))
+        rep.update(fwd_bound)
+        rep["ms"] = cuda_time_ms(lambda: kern(pyramid, coords0))
+        rep["plain_ms"] = cuda_time_ms(lambda: plain(pyramid, coords0),
+                                       reps=3, batches=3)
 
     for lvl, vol in enumerate(pyramid):
         h2, w2 = vol.shape[-2:]
@@ -275,19 +293,19 @@ def level_kernel_phase(corr):
         cflat = coords.reshape(Q, 2)
         shape = [E, h, w, h2, w2]
 
+        # the forwards' one-level forms at this level, the library call
+        # (it takes one level) and the level's share of the bound
         libms = cuda_time_ms(lambda: grid_sample_lookup(planes, cflat))
-        fwd_bytes = lookup_bytes(coords, h2, w2, vol.element_size())
-        report["lookup_level_fwd"]["library_ms"] += libms
-        report["lookup_level_fwd"]["levels"].append(dict(
-            level=lvl, shape=shape, library_ms=libms,
-            **bound_row(fwd_bytes, Q * LOOKUP_FLOPS_PER_QUERY)))
-        err = check_equal(lookup_level_v2_cuda(vol, coords),
-                          lookup_level_v2_reference(vol, coords))
-        add("lookup_level_v2_fwd", lvl, shape,
-            cuda_time_ms(lambda: lookup_level_v2_cuda(vol, coords)),
-            cuda_time_ms(lambda: lookup_level_v2_reference(vol, coords),
-                         reps=3, batches=3),
-            libms, fwd_bytes, Q * LOOKUP_FLOPS_PER_QUERY, err)
+        row = dict(level=lvl, shape=shape, library_ms=libms,
+                   **bound_row(lookup_bytes(coords, h2, w2,
+                                            vol.element_size()),
+                               Q * LOOKUP_FLOPS_PER_QUERY))
+        for name, (_, _, one, one_plain) in forwards.items():
+            rep = report[name]
+            rep["max_abs_err"] = max(rep["max_abs_err"], check_equal(
+                one(vol, coords), one_plain(vol, coords)))
+            rep["library_ms"] += libms
+            rep["levels"].append(row)
 
         # backward: against its plain version and against autograd through
         # both plain forwards
@@ -315,12 +333,18 @@ def level_kernel_phase(corr):
         # gradients and coordinates read once; 4 products and 3 sums per
         # window element
         bwd_bytes = Q * h2 * w2 * 4 + Q * 49 * 4 + Q * 8
-        add("lookup_level_bwd", lvl, shape,
-            cuda_time_ms(lambda: lookup_level_backward_cuda(g, coords, h2,
-                                                            w2)),
-            cuda_time_ms(lambda: lookup_level_backward_reference(
-                g, coords, h2, w2), reps=3, batches=3),
-            lib_bwd, bwd_bytes, Q * 64 * 7, err)
+        row = dict(level=lvl, shape=shape,
+                   ms=cuda_time_ms(lambda: lookup_level_backward_cuda(
+                       g, coords, h2, w2)),
+                   plain_ms=cuda_time_ms(
+                       lambda: lookup_level_backward_reference(
+                           g, coords, h2, w2), reps=3, batches=3),
+                   library_ms=lib_bwd,
+                   **bound_row(bwd_bytes, Q * 64 * 7))
+        rep["levels"].append(row)
+        for k in keys[:-1]:
+            rep[k] += row[k]
+        rep["max_abs_err"] = max(rep["max_abs_err"], err)
         torch.cuda.empty_cache()
     return report
 
@@ -426,12 +450,15 @@ def training_phase(corr):
                  "lookup_level_bwd"):
         if launches[name] <= 0:
             raise RuntimeError(f"the training path never launched {name}")
-    # under "level" a pyramid is one forward launch, and one backward
-    # launch per level
-    per_step = steps[1]["launches"]
-    if (per_step["lookup_level_fwd"] != cfg.iters
-            or per_step["lookup_level_bwd"] != 4 * cfg.iters):
-        raise RuntimeError(f"{cfg.iters} iterations launched {per_step}")
+    # under either schedule a pyramid is one forward launch, and one
+    # backward launch per level
+    for step, fwd in ((steps[1], "lookup_level_fwd"),
+                      (steps[2], "lookup_level_v2_fwd")):
+        per_step = step["launches"]
+        if (per_step[fwd] != cfg.iters
+                or per_step["lookup_level_bwd"] != 4 * cfg.iters):
+            raise RuntimeError(f"{cfg.iters} iterations under "
+                               f"{step['impl']} launched {per_step}")
     out = dict(train_steps=TRAIN_STEPS, train_s=t_train,
                launches_train=launches_train, logged=logged,
                step_s_level=steps[1]["step_s"],
@@ -440,6 +467,7 @@ def training_phase(corr):
                peak_mem_bytes=steps[1]["peak_mem_bytes"],
                peak_mem_bytes_remat=steps[3]["peak_mem_bytes"],
                launches_per_step=steps[1]["launches"],
+               launches_per_step_level_v2=steps[2]["launches"],
                loss_seeded=loss_seeded, loss_shipped=loss_shipped,
                launches=launches)
     print("training path: " + json.dumps(out), flush=True)
@@ -447,7 +475,8 @@ def training_phase(corr):
 
 
 def umeyama_ate(est, gt):
-    """ATE RMSE of est (N,3) vs gt (N,3) after a Sim(3) alignment."""
+    """ATE RMSE of est (N,3) vs gt (N,3) after a Sim(3) alignment, and the
+    alignment's scale."""
     mu_e, mu_g = est.mean(0), gt.mean(0)
     e, g = est - mu_e, gt - mu_g
     cov = g.T @ e / len(est)
@@ -459,33 +488,47 @@ def umeyama_ate(est, gt):
     var = (e ** 2).sum() / len(est)
     s = np.trace(np.diag(D) @ S) / max(var, 1e-12)
     aligned = s * (R @ e.T).T + mu_g
-    return float(np.sqrt(((aligned - gt) ** 2).sum(-1).mean()))
+    return float(np.sqrt(((aligned - gt) ** 2).sum(-1).mean())), float(s)
 
 
-def main_path_phase(corr, n_frames):
-    from droid_slam_tpu_torch.config import SLAMConfig
-    from droid_slam_tpu_torch.data.synthetic import render_box_scene
+def serving_phase(corr, label, cfg, scene, with_depth=False):
+    """`Droid(cfg)` with the shipped weights tracks `scene` frame by frame
+    (with its exact depths when `with_depth`) and terminates (global BA +
+    trajectory fill of the left or only camera); launch counts are reset
+    just before and read just after.  Raises unless the trajectory is
+    finite with unit quaternions, the frontend initialized, the lookup
+    kernel launched, and the ATE after a Sim(3) alignment is under 10% of
+    the path.  Returns the phase's readings, the Droid, and under stereo
+    the frontend's active edges (ii, jj) at the frame with the most
+    ii == jj edges."""
     from droid_slam_tpu_torch.runtime.slam import Droid
 
-    cfg = SLAMConfig()
-    H, W = cfg.image_size
-    t = time.time()
-    scene = render_box_scene(n_frames, H, W, seed=1, motion_scale=0.12)
-    print(f"scene: {n_frames} frames {H}x{W} rendered in "
-          f"{time.time() - t:.1f} s", flush=True)
     images, intr = scene["images"], scene["intrinsics"][0]
-
+    n_frames = len(images)
+    depth = scene["depths"] if with_depth else [None] * n_frames
     droid = Droid(cfg, weights_path="weights/droid_synth.npz")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     corr.reset_launch_counts()
+    self_edges, stereo_edges = [], None
     t = time.time()
-    passed = sum(bool(droid.track(float(k), images[k], intrinsics=intr))
-                 for k in range(n_frames))
+    passed = 0
+    for k in range(n_frames):
+        passed += bool(droid.track(float(k), images[k], depth=depth[k],
+                                   intrinsics=intr))
+        if cfg.stereo:
+            ii, jj = droid.frontend.active_edges()
+            self_edges.append(int((ii == jj).sum()))
+            if self_edges[-1] == max(self_edges):
+                stereo_edges = (ii.copy(), jj.copy())
     torch.cuda.synchronize()
     t_track = time.time() - t
     n_kf = droid.video.counter
     launches_track = corr.launch_counts()["corr_lookup"]
+    st = droid.video.state
+    if cfg.upsample:
+        up_written_track = int((st.disps_up[:n_kf] != 0).flatten(1).any(1)
+                               .sum())
     t = time.time()
     traj = droid.terminate(
         ((float(k), images[k], intr) for k in range(n_frames)))
@@ -495,26 +538,161 @@ def main_path_phase(corr, n_frames):
     peak = torch.cuda.max_memory_allocated()
 
     if traj.shape != (n_frames, 7) or not np.all(np.isfinite(traj)):
-        raise RuntimeError(f"bad trajectory: shape {traj.shape}, finite "
-                           f"{np.all(np.isfinite(traj))}")
+        raise RuntimeError(f"{label}: bad trajectory: shape {traj.shape}, "
+                           f"finite {np.all(np.isfinite(traj))}")
     qn = np.linalg.norm(traj[:, 3:], axis=-1)
     if np.abs(qn - 1).max() > 1e-3:
-        raise RuntimeError(f"non-unit quaternions: {np.abs(qn - 1).max()}")
+        raise RuntimeError(f"{label}: non-unit quaternions: "
+                           f"{np.abs(qn - 1).max()}")
     if n_kf <= cfg.warmup:
-        raise RuntimeError(f"only {n_kf} keyframes (warmup {cfg.warmup})")
+        raise RuntimeError(f"{label}: only {n_kf} keyframes (warmup "
+                           f"{cfg.warmup})")
     if launches <= 0:
-        raise RuntimeError("the main path never launched the lookup kernel")
+        raise RuntimeError(f"{label}: the path never launched the lookup "
+                           f"kernel")
     gt = scene["poses_c2w"][:, :3]
-    ate = umeyama_ate(traj[:, :3], gt)
+    ate, scale = umeyama_ate(traj[:, :3], gt)
     path = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
     if not ate < 0.1 * path:
-        raise RuntimeError(f"ATE {ate} exceeds 10% of the path {path}")
+        raise RuntimeError(f"{label}: ATE {ate} exceeds 10% of the path "
+                           f"{path}")
     out = dict(frames=n_frames, filter_passed=passed, keyframes=n_kf,
                track_s=t_track, track_fps=n_frames / t_track,
-               terminate_s=t_term, ate_rmse=ate, path_length=path,
-               lookup_launches_track=launches_track,
+               terminate_s=t_term, ate_rmse=ate, sim3_scale=scale,
+               path_length=path, lookup_launches_track=launches_track,
                lookup_launches=launches, peak_mem_bytes=peak)
+    if cfg.stereo:
+        out.update(ii_eq_jj_edges_max=max(self_edges),
+                   frames_with_ii_eq_jj_edges=sum(e > 0 for e in self_edges))
+    if cfg.upsample:
+        n = droid.video.counter
+        written = (st.disps_up[:n] != 0).flatten(1).any(1)
+        # inverse depth of the written keyframes against the render's exact
+        # depth at their timestamps
+        ks = st.tstamp[:n][written].long().cpu().numpy()
+        inv = st.disps_up[:n][written].cpu().numpy()
+        gt_inv = 1.0 / scene["depths"][ks]
+        out.update(disps_up_written_track=up_written_track,
+                   disps_up_written=int(written.sum()),
+                   disps_up_finite=bool(np.isfinite(inv).all()),
+                   disps_up_rel_err_median=float(np.median(
+                       np.abs(inv - gt_inv) / gt_inv)))
+    return out, droid, stereo_edges
+
+
+def stereo_kernel_check(corr, cfg, droid, ii, jj):
+    """The serving lookup kernel at the stereo path's shapes, on the run's
+    own features and poses: the on-the-fly volumes of the frontend edges
+    (ii, jj), ii == jj ones read from the right camera, in the keyframe
+    step's blocks of query pixels.  Holds the kernel against its plain
+    version block by block and the path's `edge_correlation` against the
+    kernel's taps; times one block."""
+    from droid_slam_tpu_torch.geom import projective
+    from droid_slam_tpu_torch.runtime.factor_graph import (
+        corr_pixel_chunk, edge_correlation, target_fmaps)
+    from droid_slam_tpu_torch.runtime.fused import fused_caps
+    from droid_slam_tpu_torch.runtime.state import pool_pyramid
+
+    st = droid.video.state
+    h, w = droid.video.fht, droid.video.fwd
+    ii = torch.as_tensor(ii, device="cuda")
+    jj = torch.as_tensor(jj, device="cuda")
+    E, HW = len(ii), h * w
+    coords1 = projective.projective_transform(
+        st.poses[None], st.disps[None], st.intrinsics[None], ii, jj)[0][0]
+    # the keyframe step's blocking (corr.alt_lookup_pyramid's rule)
+    chunk = corr_pixel_chunk(cfg, fused_caps(cfg)[5], HW)
+    step = chunk if (HW > 1024 and 0 < chunk < HW) else HW
+    path = edge_correlation(st.fmaps, ii, jj, coords1, chunk)
+    path = path.reshape(E, HW, -1)
+    f1 = st.fmaps[ii, 0].float().reshape(E, HW, -1) / 4.0
+    f2 = [p.float() / 4.0 for p in pool_pyramid(target_fmaps(st.fmaps, ii,
+                                                             jj))]
+    cflat = coords1.reshape(E, HW, 2)
+    err, blocks = 0.0, []
+    for lo in range(0, HW, step):
+        vols = [torch.bmm(f1[:, lo:lo + step],
+                          p.reshape(E, -1, p.shape[-1]).transpose(1, 2))
+                .to(torch.bfloat16).reshape((E, -1) + tuple(p.shape[1:3]))
+                for p in f2]
+        c = cflat[:, lo:lo + step].contiguous()
+        got = corr.lookup_pyramid_flat_cuda(vols, c)
+        err = max(err, check_equal(
+            got, corr.lookup_pyramid_flat_reference(vols, c)))
+        check_equal(path[:, lo:lo + step], got)
+        blocks.append((vols, c))
+    vols, c = blocks[0]
+    return dict(edges=E, ii_eq_jj_edges=int((ii == jj).sum()),
+                query_block=step, blocks=len(blocks),
+                planes=[list(p.shape[1:3]) for p in f2], max_abs_err=err,
+                block_ms=cuda_time_ms(
+                    lambda: corr.lookup_pyramid_flat_cuda(vols, c)))
+
+
+def main_path_phase(corr, n_frames):
+    """The mono path: `SLAMConfig()` on the box scene."""
+    from droid_slam_tpu_torch.config import SLAMConfig
+    from droid_slam_tpu_torch.data.synthetic import render_box_scene
+
+    cfg = SLAMConfig()
+    H, W = cfg.image_size
+    t = time.time()
+    scene = render_box_scene(n_frames, H, W, seed=1, motion_scale=0.12)
+    print(f"scene: {n_frames} frames {H}x{W} rendered in "
+          f"{time.time() - t:.1f} s", flush=True)
+    out = serving_phase(corr, "main path", cfg, scene)[0]
     print("main path: " + json.dumps(out), flush=True)
+    return out
+
+
+def stereo_phase(corr, n_frames):
+    """The EuRoC preset with stereo input on the stereo box scene."""
+    import dataclasses
+
+    from droid_slam_tpu_torch.config import PRESETS
+    from droid_slam_tpu_torch.data.synthetic import render_stereo_box_scene
+
+    cfg = dataclasses.replace(PRESETS["euroc"], stereo=True)
+    H, W = cfg.image_size
+    t = time.time()
+    scene = render_stereo_box_scene(n_frames, H, W, seed=2,
+                                    motion_scale=0.12)
+    print(f"stereo scene: {n_frames} pairs {H}x{W} rendered in "
+          f"{time.time() - t:.1f} s", flush=True)
+    out, droid, edges = serving_phase(corr, "stereo path", cfg, scene)
+    if out["ii_eq_jj_edges_max"] <= 0:
+        raise RuntimeError("stereo path: no ii == jj edge in the frontend "
+                           "graph")
+    # after the launch counts were read: these launches only compare
+    out["kernel_check"] = stereo_kernel_check(corr, cfg, droid, *edges)
+    print("stereo path: " + json.dumps(out), flush=True)
+    return out
+
+
+def rgbd_phase(corr, n_frames):
+    """The ETH3D preset with depth input and convex upsampling on the box
+    scene with its exact depths."""
+    import dataclasses
+
+    from droid_slam_tpu_torch.config import PRESETS
+    from droid_slam_tpu_torch.data.synthetic import render_box_scene
+
+    cfg = dataclasses.replace(PRESETS["eth3d"], upsample=True)
+    H, W = cfg.image_size
+    t = time.time()
+    scene = render_box_scene(n_frames, H, W, seed=3, motion_scale=0.12)
+    print(f"rgbd scene: {n_frames} frames {H}x{W} rendered in "
+          f"{time.time() - t:.1f} s", flush=True)
+    out = serving_phase(corr, "rgbd path", cfg, scene, with_depth=True)[0]
+    print("rgbd path: " + json.dumps(out), flush=True)
+    # the depth prior fixes metric scale: the alignment needs no rescaling
+    if not abs(out["sim3_scale"] - 1.0) <= 0.1:
+        raise RuntimeError(f"rgbd path: Sim(3) scale {out['sim3_scale']} "
+                           f"is off 1 by more than 0.1")
+    if out["disps_up_written"] <= 0 or not out["disps_up_finite"]:
+        raise RuntimeError(f"rgbd path: disps_up written for "
+                           f"{out['disps_up_written']} keyframes, finite "
+                           f"{out['disps_up_finite']}")
     return out
 
 
@@ -543,6 +721,8 @@ def main():
     print("level kernel phase: " + json.dumps(level), flush=True)
 
     main = main_path_phase(corr, FRAMES)
+    stereo = stereo_phase(corr, FRAMES_STEREO_RGBD)
+    rgbd_phase(corr, FRAMES_STEREO_RGBD)
     training = training_phase(corr)
 
     def bound_by(rep):
@@ -554,12 +734,14 @@ def main():
         replaces="droid_slam_tpu/ops/corr_pallas.py:333 "
                  "(lookup_flat_pallas_v3)",
         launches=main["lookup_launches"],
-        max_abs_err=kern["max_abs_err"],
+        max_abs_err=max(kern["max_abs_err"],
+                        stereo["kernel_check"]["max_abs_err"]),
         ms=kern["ms"], plain_ms=kern["plain_ms"],
         bound_ms=kern["bound_ms"], bound_by=bound_by(kern),
         library_ms=kern["library_ms"],
         note="ms per 4-level pyramid lookup of 64 edges at 240x320 in "
-             "one launch, identity grid plus a small flow",
+             "one launch, identity grid plus a small flow; max_abs_err "
+             "also over the stereo path's blocks",
     )]
     replaces = {
         "lookup_level_fwd": "droid_slam_tpu/ops/corr_pallas.py:83 "

@@ -11,12 +11,13 @@
 //   lookup_level_fwd     replaces the TPU kernel droid_slam_tpu/ops/
 //                        corr_pallas.py: lookup_level_pallas (body
 //                        _lookup_kernel): 8x8 window, four-corner combine.
-//                        One launch serves a whole pyramid of up to four
-//                        levels: coords are at level-0 resolution and level
-//                        l lands at out[q, 49 l + ox * 7 + oy].
 //   lookup_level_v2_fwd  replaces lookup_level_pallas_v2 (body
 //                        _lookup_kernel_v2): window rows blended along x,
-//                        then neighbouring rows blended along y; one level.
+//                        then neighbouring rows blended along y.
+//                        Both forwards serve a whole pyramid of up to four
+//                        levels in one launch: coords are at level-0
+//                        resolution and level l lands at
+//                        out[q, 49 l + ox * 7 + oy].
 //   lookup_level_bwd     the gradient of either forward with respect to the
 //                        volume (the TPU package differentiates its jnp
 //                        lookup; there is no TPU kernel for it); one level.
@@ -28,15 +29,15 @@
 // window row is 8 adjacent floats (one 32-byte sector when aligned).
 //
 // Each kernel keeps the operation order of its plain PyTorch version
-// (ops/corr.py: lookup_pyramid_level_reference, lookup_level_v2_reference,
-// lookup_level_backward_reference) and uses the _rn intrinsics so that nvcc
-// contracts nothing into FMAs.
+// (ops/corr.py: lookup_pyramid_level_reference,
+// lookup_pyramid_level_v2_reference, lookup_level_backward_reference) and
+// uses the _rn intrinsics so that nvcc contracts nothing into FMAs.
 //
 // Schedules.
 //   fwd:  that of lookup_pyramid.cuh with the four-corner combine: eight
 //         lanes a query (a lane owns a window column, so a warp-wide load
-//         reads four 32-byte row segments), the loads of all levels in
-//         flight before the first is used, neighbouring columns by shuffle,
+//         reads four 32-byte row segments), a level's eight loads in
+//         flight together, neighbouring columns by shuffle,
 //         a run's taps written as one contiguous stretch of 16-byte stores,
 //         a grid sized to the card striding over the runs.  Its first
 //         version was one warp per query and level: 122,880 one-shot warps
@@ -48,11 +49,13 @@
 //         the kernels.  At the training shapes a pyramid takes 0.125 ms
 //         where the first version's four launches took 0.153 (NVIDIA H100
 //         80GB HBM3, 700.00 W; tools/torch_bench_lookup.py).
-//   v2:   eight lanes per query, four queries a warp.  Lane k of a query
-//         loads window row k (8 floats), blends it along x in registers,
-//         takes row k + 1's blend by __shfl_down_sync and blends along y.
-//         Taps go through shared memory so the warp writes its four
-//         queries' 196 floats contiguously.
+//   v2:   the same schedule with the separable combine.  Its first
+//         version was one launch per level with a lane owning a window
+//         ROW: each of a warp's eight loads touched 32 plane rows, one
+//         sector each for 4 useful bytes a lane, taps left by scalar
+//         stores, and a pyramid was four launches, four coordinate
+//         divides and a concatenation (0.167 ms per pyramid at the
+//         training shapes, NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py).
 //   bwd:  one warp per query.  The 49 tap gradients are staged in shared
 //         memory with a zero border; window element (a, b) gathers the (at
 //         most four) tap gradients it fed, with their bilinear weights.  A
@@ -73,8 +76,6 @@
 namespace {
 
 using namespace lookup;
-
-constexpr int kQueriesV2 = 4;            // queries per warp in the v2 kernel
 
 // integer window origin and bilinear weights of one query
 struct Query {
@@ -99,80 +100,45 @@ __device__ __forceinline__ Query read_query(const float* __restrict__ coords,
   return s;
 }
 
-template <typename T>
+template <typename T, bool kSeparable>
 __global__ void __launch_bounds__(kThreads)
 lookup_level_fwd_kernel(const Pyramid pyr, const float* __restrict__ coords,
                         float* __restrict__ out, int64_t Q) {
   __shared__ __align__(16) float stage[kWarps][kRun * kTaps * kMaxLevels];
   const int warp = threadIdx.x >> 5;
   // one edge of Q queries: plane q belongs to query q
-  lookup_pyramid_warp<T, /*kSeparable=*/false>(
+  lookup_pyramid_warp<T, kSeparable>(
       pyr, coords, out, Q, 1, 1, stage[warp],
       (int64_t)blockIdx.x * kWarps + warp, (int64_t)gridDim.x * kWarps);
 }
 
-template <typename T>
+template <typename T, bool kSeparable>
 int launch_pyramid(const Pyramid& pyr, const float* coords, float* out,
                    int64_t Q, cudaStream_t s) {
-  const unsigned blocks = pyramid_grid(lookup_level_fwd_kernel<T>, Q);
-  lookup_level_fwd_kernel<T><<<blocks, kThreads, 0, s>>>(pyr, coords, out, Q);
+  const unsigned blocks =
+      pyramid_grid(lookup_level_fwd_kernel<T, kSeparable>, Q);
+  lookup_level_fwd_kernel<T, kSeparable><<<blocks, kThreads, 0, s>>>(
+      pyr, coords, out, Q);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-lookup_level_v2_fwd_kernel(const T* __restrict__ vol,
-                           const float* __restrict__ coords,
-                           float* __restrict__ out, int64_t Q, int h2,
-                           int w2) {
-  __shared__ float stage[kWarps][kQueriesV2 * kTaps];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int sub = lane >> 3;   // query of the warp
-  const int k = lane & 7;      // window row of the query
-  const int64_t q0 = ((int64_t)blockIdx.x * kWarps + warp) * kQueriesV2;
-  if (q0 >= Q) return;         // the whole warp leaves
-  const int64_t q = q0 + sub;
-
-  // every lane stays for the shuffles; lanes past the last query carry 0
-  float tx[kDiam];
-#pragma unroll
-  for (int c = 0; c < kDiam; ++c) tx[c] = 0.0f;
-  float dy = 0.0f, omy = 0.0f;
-  if (q < Q) {
-    const Query s = read_query(coords, q);
-    dy = s.dy;
-    omy = s.omy;
-    const T* plane = vol + q * ((int64_t)h2 * w2);
-    const int y = s.y0 - kRadius + k;
-    const bool row_ok = (y >= 0) && (y < h2);
-    float r[kWin];
-#pragma unroll
-    for (int c = 0; c < kWin; ++c) {
-      const int x = s.x0 - kRadius + c;
-      r[c] = (row_ok && x >= 0 && x < w2)
-                 ? load_f32(plane + (int64_t)y * w2 + x)
-                 : 0.0f;
-    }
-#pragma unroll
-    for (int c = 0; c < kDiam; ++c) {
-      tx[c] = __fadd_rn(__fmul_rn(s.omx, r[c]), __fmul_rn(s.dx, r[c + 1]));
-    }
+template <bool kSeparable>
+int launch_pyramid(const void* const* vols, const int* h2, const int* w2,
+                   int levels, int dtype, const float* coords, float* out,
+                   int64_t Q, void* stream) {
+  Pyramid pyr;
+  if (!make_pyramid(&pyr, vols, h2, w2, levels)) {
+    return (int)cudaErrorInvalidValue;
   }
-#pragma unroll
-  for (int c = 0; c < kDiam; ++c) {
-    const float below = __shfl_down_sync(0xffffffffu, tx[c], 1, 8);
-    if (k < kDiam) {
-      stage[warp][sub * kTaps + c * kDiam + k] =
-          __fadd_rn(__fmul_rn(omy, tx[c]), __fmul_rn(dy, below));
-    }
+  if (Q == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_pyramid<float, kSeparable>(pyr, coords, out, Q, s);
   }
-  __syncwarp();
-
-  const int64_t left = Q - q0;
-  const int n = (int)(left < kQueriesV2 ? left : kQueriesV2) * kTaps;
-  float* o = out + q0 * kTaps;
-  for (int i = lane; i < n; i += 32) o[i] = stage[warp][i];
+  if (dtype == 1) {
+    return launch_pyramid<__nv_bfloat16, kSeparable>(pyr, coords, out, Q, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -232,39 +198,22 @@ inline unsigned blocks_for(int64_t warps) {
 // vols: `levels` (1..4) device pointers, level l holding Q contiguous
 // (h2[l], w2[l]) planes of one dtype.  coords (Q, 2) at level-0 resolution
 // and out (Q, 49 levels) are contiguous float32, out 16-byte aligned.
+// lookup_level_fwd combines the four corners, lookup_level_v2_fwd blends
+// along x, then along y.
 extern "C" int lookup_level_fwd(const void* const* vols, const int* h2,
                                 const int* w2, int levels, int dtype,
                                 const float* coords, float* out, int64_t Q,
                                 void* stream) {
-  Pyramid pyr;
-  if (!make_pyramid(&pyr, vols, h2, w2, levels)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (Q == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_pyramid<float>(pyr, coords, out, Q, s);
-  if (dtype == 1) return launch_pyramid<__nv_bfloat16>(pyr, coords, out, Q, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_pyramid<false>(vols, h2, w2, levels, dtype, coords, out, Q,
+                               stream);
 }
 
-// vol: Q contiguous (h2, w2) planes; coords (Q, 2) in level units and out
-// (Q, 49) are contiguous float32.
-extern "C" int lookup_level_v2_fwd(const void* vol, int dtype,
+extern "C" int lookup_level_v2_fwd(const void* const* vols, const int* h2,
+                                   const int* w2, int levels, int dtype,
                                    const float* coords, float* out,
-                                   int64_t Q, int h2, int w2, void* stream) {
-  if (Q == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = blocks_for((Q + kQueriesV2 - 1) / kQueriesV2);
-  if (dtype == 0) {
-    lookup_level_v2_fwd_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(vol), coords, out, Q, h2, w2);
-  } else if (dtype == 1) {
-    lookup_level_v2_fwd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(vol), coords, out, Q, h2, w2);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+                                   int64_t Q, void* stream) {
+  return launch_pyramid<true>(vols, h2, w2, levels, dtype, coords, out, Q,
+                              stream);
 }
 
 // grad_taps (Q, 49), coords (Q, 2) and grad_vol (Q, h2, w2) are contiguous

@@ -1,6 +1,6 @@
 // One-launch pyramid lookup for Hopper (sm_90a): the schedule shared by the
-// serving kernel (corr_lookup.cu) and the training kernel
-// (corr_lookup_level.cu: lookup_level_fwd).
+// serving kernel (corr_lookup.cu) and the two training forwards
+// (corr_lookup_level.cu: lookup_level_fwd, lookup_level_v2_fwd).
 //
 // Function.  A pyramid is up to four levels of query-major planes: level l
 // holds one contiguous (h2_l, w2_l) plane per query.  For every query and
@@ -39,9 +39,11 @@
 // ops/corr.py, with the _rn intrinsics so that nvcc contracts nothing into
 // FMAs (bit-identical results):
 //   separable  rows blended along x, then neighbouring rows along y
-//              (lookup_pyramid_flat_reference);
+//              (lookup_pyramid_flat_reference, and
+//              lookup_pyramid_level_v2_reference of lookup_level_v2_fwd);
 //   corners    the four bilinear corner weights times the four window
-//              elements, summed in order (lookup_pyramid_level_reference).
+//              elements, summed in order (lookup_pyramid_level_reference
+//              of lookup_level_fwd).
 //
 // Offsets of planes are 64-bit: a level-0 training volume at batch 4 passes
 // 2^31 bytes.

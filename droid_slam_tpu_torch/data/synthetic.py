@@ -1,8 +1,9 @@
 """Synthetic textured scenes with exact ground truth (numpy + torch).
 
 `render_box_scene`: a camera random-walks inside a textured box looking
-toward +z.  `render_plane_scene`: a camera moves in front of a textured,
-optionally slanted plane.  Depth maps and poses are analytic (ray/plane
+toward +z; `render_stereo_box_scene` renders it from a stereo rig.
+`render_plane_scene`: a camera moves in front of a textured, optionally
+slanted plane.  Depth maps and poses are analytic (ray/plane
 intersections).  The same scene generators as the JAX package's
 `data/synthetic`, with the image resampling written out in numpy:
 bilinear upsampling for the noise octaves and bilinear texture lookup
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from ..geom.projective import STEREO_TX
 from ..lie import se3, so3
 
 _SUBPIX = 32          # texture-coordinate quantization (1/32 pixel)
@@ -56,12 +58,15 @@ def _sample_wrap(tex, u, v):
 
 
 def render_box_scene(n_frames=12, H=96, W=128, seed=0, motion_scale=0.08,
-                     box=(2.5, 1.8, 6.0), focal=0.9, n_obstacles=0):
+                     box=(2.5, 1.8, 6.0), focal=0.9, n_obstacles=0,
+                     poses_c2w=None):
     """Render a camera moving inside a textured box.
 
-    The box spans x ∈ [−bx, bx], y ∈ [−by, by], z ∈ [−1, bz].  Returns
-    dict(images (N,H,W,3) uint8 RGB, poses_c2w (N,7), depths (N,H,W) f32,
-    intrinsics (N,4)).
+    The box spans x ∈ [−bx, bx], y ∈ [−by, by], z ∈ [−1, bz].  The camera
+    random-walks from the seed unless `poses_c2w` (N, 7) gives its poses;
+    the walk is drawn either way, so two calls with one seed render one
+    scene.  Returns dict(images (N,H,W,3) uint8 RGB, poses_c2w (N,7),
+    depths (N,H,W) f32, intrinsics (N,4)).
     """
     rng = np.random.default_rng(seed)
     bx, by, bz = box
@@ -82,7 +87,11 @@ def render_box_scene(n_frames=12, H=96, W=128, seed=0, motion_scale=0.08,
     xi[:, 1] = np.clip(xi[:, 1], -0.5 * by, 0.5 * by)
     xi[:, 2] = np.clip(xi[:, 2], -0.5, 0.4 * bz)
     xi[:, 3:] = np.clip(xi[:, 3:], -0.35, 0.35)
-    poses_c2w = se3.exp(torch.from_numpy(xi.astype(np.float32))).numpy()
+    if poses_c2w is not None:
+        poses_c2w = np.asarray(poses_c2w, np.float32)
+        n_frames = poses_c2w.shape[0]
+    else:
+        poses_c2w = se3.exp(torch.from_numpy(xi.astype(np.float32))).numpy()
 
     ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
     dirs = np.stack([(xs - cx) / fx, (ys - cy) / fy, np.ones_like(xs)],
@@ -142,6 +151,26 @@ def render_box_scene(n_frames=12, H=96, W=128, seed=0, motion_scale=0.08,
         images=np.stack(images), poses_c2w=poses_c2w.astype(np.float32),
         depths=np.stack(depths), intrinsics=np.tile(intr, (n_frames, 1)),
     )
+
+
+def render_stereo_box_scene(n_frames=12, H=96, W=128, seed=0, **kw):
+    """`render_box_scene` seen by a rectified stereo rig: the right camera
+    has the left one's orientation and sits -STEREO_TX (0.1) along its x
+    axis, the fixed baseline of the rig edges (geom/projective.py).
+    Returns dict(images (N,2,H,W,3) uint8 [left, right], and the left
+    camera's poses_c2w (N,7), depths (N,H,W) and intrinsics (N,4)).
+    """
+    left = render_box_scene(n_frames, H, W, seed=seed, **kw)
+    poses = left["poses_c2w"]
+    offset = so3.act(torch.from_numpy(poses[:, 3:7]),
+                     torch.tensor([-STEREO_TX, 0.0, 0.0]).expand(
+                         len(poses), 3)).numpy()
+    poses_r = poses.copy()
+    poses_r[:, :3] += offset
+    right = render_box_scene(n_frames, H, W, seed=seed, poses_c2w=poses_r,
+                             **kw)
+    return dict(left, images=np.stack([left["images"], right["images"]],
+                                      axis=1))
 
 
 def render_plane_scene(n_frames=12, H=96, W=128, plane_z=2.0, seed=0,

@@ -21,19 +21,21 @@ launch per pyramid; a CPU tensor goes to the plain PyTorch version
 The training path looks up contiguous 6-D pyramid levels
 (B, N, H, W, h2, w2) through `lookup_pyramid`, which `set_lookup_impl`
 routes:
-  * "level" (the training default): `lookup_pyramid_level_cuda`, the whole
-    pyramid in one launch, four-corner combine — replaces the TPU kernel
-    droid_slam_tpu/ops/corr_pallas.py: lookup_level_pallas;
-  * "level_v2": `lookup_level_v2_cuda` level by level, eight lanes per
-    query, separable blend — replaces lookup_level_pallas_v2;
-  * "flat": the serving kernel, one launch (no gradient).
-Both "level" routes are differentiable with respect to the volume: their
-backward is the third kernel of csrc/corr_lookup_level.cu
-(`lookup_level_backward_cuda`), once per level.  Each kernel has a plain
-PyTorch version with the same operation order
-(`lookup_pyramid_level_reference`, `lookup_level_v2_reference`,
+  * "level" (the training default): `lookup_pyramid_level_cuda`, four-corner
+    combine — replaces the TPU kernel droid_slam_tpu/ops/corr_pallas.py:
+    lookup_level_pallas;
+  * "level_v2": `lookup_pyramid_level_v2_cuda`, separable blend — replaces
+    lookup_level_pallas_v2;
+  * "flat": the serving kernel (no gradient).
+Each route is one launch for the whole pyramid (csrc/lookup_pyramid.cuh
+is the schedule of all three).  Both "level" routes are differentiable
+with respect to the volume: their backward is the third kernel of
+csrc/corr_lookup_level.cu (`lookup_level_backward_cuda`), once per level.
+Each kernel has a plain PyTorch version with the same operation order
+(`lookup_pyramid_level_reference`, `lookup_pyramid_level_v2_reference`,
 `lookup_level_backward_reference`) that CPU tensors take; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  `lookup_level_cuda` / `lookup_level_v2_cuda`
+and their plain versions are the one-level forms.
 """
 
 import ctypes
@@ -322,6 +324,12 @@ def _level_taps(volume_level, coords, radius, combine):
     return combine(T, dx, dy, radius).reshape(lead + (-1,))
 
 
+def _pyramid_taps(pyramid, coords, radius, combine):
+    pyramid = _check_level_args(pyramid, coords, radius)
+    return torch.cat([_level_taps(vol, coords / (2.0 ** l), radius, combine)
+                      for l, vol in enumerate(pyramid)], dim=-1)
+
+
 def lookup_pyramid_level_reference(pyramid, coords, radius=RADIUS):
     """Plain PyTorch version of `lookup_pyramid_level_cuda`: the 8×8 window
     of each query's plane at every level, combined with the four bilinear
@@ -334,10 +342,14 @@ def lookup_pyramid_level_reference(pyramid, coords, radius=RADIUS):
     Returns:
       (B, N, H, W, L·(2r+1)²) float32 taps, level-major, x-offset-major.
     """
-    pyramid = _check_level_args(pyramid, coords, radius)
-    return torch.cat([_level_taps(vol, coords / (2.0 ** l), radius,
-                                  _corner_taps)
-                      for l, vol in enumerate(pyramid)], dim=-1)
+    return _pyramid_taps(pyramid, coords, radius, _corner_taps)
+
+
+def lookup_pyramid_level_v2_reference(pyramid, coords, radius=RADIUS):
+    """Plain PyTorch version of `lookup_pyramid_level_v2_cuda` (contract of
+    `lookup_pyramid_level_reference`): each level's window rows blended
+    along x, then neighbouring rows blended along y."""
+    return _pyramid_taps(pyramid, coords, radius, _separable_taps)
 
 
 def lookup_level_reference(volume_level, coords, radius=RADIUS):
@@ -347,11 +359,9 @@ def lookup_level_reference(volume_level, coords, radius=RADIUS):
 
 
 def lookup_level_v2_reference(volume_level, coords, radius=RADIUS):
-    """Plain PyTorch version of `lookup_level_v2_cuda` (same contract as
-    `lookup_level_reference`): the window rows blended along x, then
-    neighbouring rows blended along y."""
-    _check_level_args([volume_level], coords, radius)
-    return _level_taps(volume_level, coords, radius, _separable_taps)
+    """One level of `lookup_pyramid_level_v2_reference` (contract of
+    `lookup_level_reference`)."""
+    return lookup_pyramid_level_v2_reference([volume_level], coords, radius)
 
 
 def _check_backward_args(grad_taps, coords, radius):
@@ -411,12 +421,9 @@ def _level_lib():
 
     lib = load("corr_lookup_level")
     if lib.lookup_level_fwd.argtypes is None:
-        lib.lookup_level_fwd.restype = ctypes.c_int
-        lib.lookup_level_fwd.argtypes = _PYRAMID_ARGTYPES + [ctypes.c_void_p]
-        lib.lookup_level_v2_fwd.restype = ctypes.c_int
-        lib.lookup_level_v2_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        for fn in (lib.lookup_level_fwd, lib.lookup_level_v2_fwd):
+            fn.restype = ctypes.c_int
+            fn.argtypes = _PYRAMID_ARGTYPES + [ctypes.c_void_p]
         lib.lookup_level_bwd.restype = ctypes.c_int
         lib.lookup_level_bwd.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -424,12 +431,12 @@ def _level_lib():
     return lib
 
 
-def lookup_pyramid_level_cuda(pyramid, coords, radius=RADIUS):
-    """Launch the four-corner lookup kernel, once for the whole pyramid
-    (contract of `lookup_pyramid_level_reference`)."""
+def _launch_level_pyramid(name, pyramid, coords, radius):
+    """Launch the pyramid kernel `name` of csrc/corr_lookup_level.cu once
+    for the whole pyramid."""
     pyramid = _check_level_args(pyramid, coords, radius)
     if not coords.is_cuda:
-        raise ValueError("lookup_level_fwd needs CUDA tensors")
+        raise ValueError(f"{name} needs CUDA tensors")
     Q = coords.numel() // 2
     out = torch.empty(
         tuple(coords.shape[:4]) + (len(pyramid) * (2 * radius + 1) ** 2,),
@@ -439,13 +446,25 @@ def lookup_pyramid_level_cuda(pyramid, coords, radius=RADIUS):
     pyramid, args = _pyramid_args(pyramid)
     coords = coords.contiguous()
     stream = torch.cuda.current_stream(coords.device).cuda_stream
-    err = _level_lib().lookup_level_fwd(*args, coords.data_ptr(),
-                                        out.data_ptr(), Q, stream)
+    err = getattr(_level_lib(), name)(*args, coords.data_ptr(),
+                                      out.data_ptr(), Q, stream)
     if err != 0:
-        raise RuntimeError(f"lookup_level_fwd kernel launch failed: CUDA "
-                           f"error {err}")
-    _LAUNCHES["lookup_level_fwd"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _LAUNCHES[name] += 1
     return out
+
+
+def lookup_pyramid_level_cuda(pyramid, coords, radius=RADIUS):
+    """Launch the four-corner lookup kernel, once for the whole pyramid
+    (contract of `lookup_pyramid_level_reference`)."""
+    return _launch_level_pyramid("lookup_level_fwd", pyramid, coords, radius)
+
+
+def lookup_pyramid_level_v2_cuda(pyramid, coords, radius=RADIUS):
+    """Launch the separable lookup kernel, once for the whole pyramid
+    (contract of `lookup_pyramid_level_v2_reference`)."""
+    return _launch_level_pyramid("lookup_level_v2_fwd", pyramid, coords,
+                                 radius)
 
 
 def lookup_level_cuda(volume_level, coords, radius=RADIUS):
@@ -455,28 +474,9 @@ def lookup_level_cuda(volume_level, coords, radius=RADIUS):
 
 
 def lookup_level_v2_cuda(volume_level, coords, radius=RADIUS):
-    """Launch the eight-lanes-per-query, separable lookup kernel (contract
-    of `lookup_level_v2_reference`)."""
-    volume_level, = _check_level_args([volume_level], coords, radius)
-    if not volume_level.is_cuda:
-        raise ValueError("lookup_level_v2_fwd needs CUDA tensors")
-    h2, w2 = volume_level.shape[-2:]
-    Q = coords.numel() // 2
-    out_shape = tuple(coords.shape[:4]) + ((2 * radius + 1) ** 2,)
-    if Q == 0 or h2 * w2 == 0:
-        return coords.new_zeros(out_shape)
-    out = torch.empty(out_shape, device=coords.device, dtype=torch.float32)
-    vol = volume_level.contiguous()
-    coords = coords.contiguous()
-    stream = torch.cuda.current_stream(vol.device).cuda_stream
-    err = _level_lib().lookup_level_v2_fwd(
-        vol.data_ptr(), _DTYPE_CODE[vol.dtype], coords.data_ptr(),
-        out.data_ptr(), Q, h2, w2, stream)
-    if err != 0:
-        raise RuntimeError(f"lookup_level_v2_fwd kernel launch failed: CUDA "
-                           f"error {err}")
-    _LAUNCHES["lookup_level_v2_fwd"] += 1
-    return out
+    """One level through `lookup_pyramid_level_v2_cuda` (contract of
+    `lookup_level_v2_reference`)."""
+    return lookup_pyramid_level_v2_cuda([volume_level], coords, radius)
 
 
 def lookup_level_backward_cuda(grad_taps, coords, h2, w2, radius=RADIUS):
@@ -518,18 +518,27 @@ def _refuse_coords_grad(coords):
                          "coords: detach them first")
 
 
+# (kernel wrapper, plain version) of each differentiable route
+_PYRAMID_FORWARDS = {
+    "level": (lookup_pyramid_level_cuda, lookup_pyramid_level_reference),
+    "level_v2": (lookup_pyramid_level_v2_cuda,
+                 lookup_pyramid_level_v2_reference),
+}
+
+
 class _LookupPyramid(torch.autograd.Function):
-    """Differentiable pyramid lookup, four-corner combine: the forward is
-    one launch of the CUDA kernel for CUDA tensors and the plain version
-    for CPU tensors; the backward runs the backward kernel (or its plain
-    version) once per level on that level's channels.  Coordinates get no
-    gradient (training detaches them before the lookup)."""
+    """Differentiable pyramid lookup of route `impl` ("level": four-corner
+    combine, "level_v2": separable): the forward is one launch of the
+    route's CUDA kernel for CUDA tensors and its plain version for CPU
+    tensors; the backward runs the backward kernel (or its plain version)
+    once per level on that level's channels.  Coordinates get no gradient
+    (training detaches them before the lookup)."""
 
     @staticmethod
-    def forward(ctx, coords, radius, *pyramid):
+    def forward(ctx, coords, radius, impl, *pyramid):
         _refuse_coords_grad(coords)
-        fn = (lookup_pyramid_level_cuda if _on_cuda(coords)
-              else lookup_pyramid_level_reference)
+        kernel, plain = _PYRAMID_FORWARDS[impl]
+        fn = kernel if _on_cuda(coords) else plain
         ctx.save_for_backward(coords)
         ctx.radius = radius
         ctx.planes = [tuple(v.shape[-2:]) for v in pyramid]
@@ -544,32 +553,9 @@ class _LookupPyramid(torch.autograd.Function):
             _level_backward(grad_taps[..., l * T:(l + 1) * T],
                             coords / (2.0 ** l), plane, ctx.radius,
                             ctx.vol_dtype)
-            if ctx.needs_input_grad[2 + l] else None
+            if ctx.needs_input_grad[3 + l] else None
             for l, plane in enumerate(ctx.planes)]
-        return (None, None, *grads)
-
-
-class _LookupLevelV2(torch.autograd.Function):
-    """Differentiable one-level lookup, separable blend (forward
-    `lookup_level_v2_cuda` or its plain version; backward as in
-    `_LookupPyramid`)."""
-
-    @staticmethod
-    def forward(ctx, volume_level, coords, radius):
-        _refuse_coords_grad(coords)
-        fn = (lookup_level_v2_cuda if _on_cuda(volume_level)
-              else lookup_level_v2_reference)
-        ctx.save_for_backward(coords)
-        ctx.radius = radius
-        ctx.plane = tuple(volume_level.shape[-2:])
-        ctx.vol_dtype = volume_level.dtype
-        return fn(volume_level, coords, radius)
-
-    @staticmethod
-    def backward(ctx, grad_taps):
-        coords, = ctx.saved_tensors
-        return _level_backward(grad_taps, coords, ctx.plane, ctx.radius,
-                               ctx.vol_dtype), None, None
+        return (None, None, None, *grads)
 
 
 LOOKUP_IMPLS = ("level", "level_v2", "flat")
@@ -613,27 +599,17 @@ def lookup_level(volume_level, coords, radius=RADIUS, impl=None):
     """(B, N, H, W, h2, w2) level, coords (B, N, H, W, 2) in level units
     -> (B, N, H, W, (2r+1)²) taps, by route `impl` (default: the one
     `set_lookup_impl` chose)."""
-    impl = _impl(impl)
-    if impl == "flat":
-        return lookup_pyramid_as_flat([volume_level], coords, radius)
-    if impl == "level_v2":
-        return _LookupLevelV2.apply(volume_level, coords, radius)
-    return _LookupPyramid.apply(coords, radius, volume_level)
+    return lookup_pyramid([volume_level], coords, radius, impl)
 
 
 def lookup_pyramid(pyramid, coords, radius=RADIUS, impl=None):
     """Pyramid lookup, coords (B, N, H, W, 2) at level-0 resolution ->
-    (B, N, H, W, L·(2r+1)²) f32 (the update operator's corr input).  The
-    "level" and "flat" routes are one launch for the whole pyramid;
-    "level_v2" goes level by level."""
+    (B, N, H, W, L·(2r+1)²) f32 (the update operator's corr input), one
+    launch for the whole pyramid on every route."""
     impl = _impl(impl)
-    if impl == "level":
-        return _LookupPyramid.apply(coords, radius, *pyramid)
     if impl == "flat":
         return lookup_pyramid_as_flat(pyramid, coords, radius)
-    outs = [lookup_level(vol, coords / (2.0 ** l), radius, impl)
-            for l, vol in enumerate(pyramid)]
-    return torch.cat(outs, dim=-1)
+    return _LookupPyramid.apply(coords, radius, impl, *pyramid)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """Global bundle-adjustment backend.
 
-Gauge-normalize (mono without sensor depth), build a fresh proximity
-factor graph over all keyframes with on-the-fly correlation, and run
-`update_lowmem` sweeps of the update operator + dense global BA.
+Gauge-normalize (mono without sensor depth: stereo edges and depth
+priors fix the scale), build a fresh proximity factor graph over all
+keyframes with on-the-fly correlation, and run `update_lowmem` sweeps of
+the update operator + dense global BA (convex-upsampling the keyframe
+disparities under `upsample`).
 """
 
 import numpy as np
@@ -55,7 +57,7 @@ class Backend:
             edge_cap=int(np.ceil(max_factors / 128) * 128),
             inac_cap=8, pose_cap=pose_cap, depth_cap=pose_cap,
             # f16 GRU state, as the reference's fp16 autocast state
-            state_dtype=torch.float16,
+            state_dtype=torch.float16, upsample=cfg.upsample,
         )
         graph.add_proximity_factors(
             rad=cfg.backend_radius, nms=cfg.backend_nms,

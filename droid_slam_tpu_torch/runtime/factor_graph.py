@@ -10,13 +10,16 @@ to the edge capacity, and the update operator runs over the slots in
 chunks of `chunk`: the chunk decides which edges GraphAgg averages
 together, so the port keeps the JAX package's slot order exactly.
 Correlation is computed on the fly every update (ops/corr.py
-alt_lookup_pyramid).
+alt_lookup_pyramid); a stereo edge ii == jj correlates the left camera
+with the right one.  With `upsample` each chunk also convex-upsamples the
+disparities of its source frames into `disps_up`, with GraphAgg's mask.
 """
 
 import numpy as np
 import torch
 
 from ..geom import projective
+from ..models.update import upsample_disp
 from ..ops import corr as corr_ops
 from .proximity import select_proximity_edges
 from .state import pool_pyramid
@@ -41,11 +44,19 @@ def segment_ids(ii):
     return ix, frames
 
 
+def target_fmaps(fmaps, ii, jj):
+    """(E, h, w, 128) target features of edges (ii, jj) from the
+    (BUF, rig, h, w, 128) store: frame jj's left camera, and on a stereo
+    edge ii == jj its right camera (the last of the rig)."""
+    return fmaps[jj, (ii == jj).long() * (fmaps.shape[1] - 1)]
+
+
 def edge_correlation(fmaps, ii, jj, coords1, pixel_chunk=0):
     """On-the-fly correlation pyramid of edges (ii, jj) at coords1
     (E, h, w, 2): features from the bf16 frame store, pooled per level."""
     f1 = fmaps[ii, 0].float() / 4.0
-    f2 = [p.float() / 4.0 for p in pool_pyramid(fmaps[jj, 0])]
+    f2 = [p.float() / 4.0
+          for p in pool_pyramid(target_fmaps(fmaps, ii, jj))]
     return corr_ops.alt_lookup_pyramid(f1, f2, coords1,
                                        pixel_chunk=pixel_chunk)
 
@@ -53,12 +64,14 @@ def edge_correlation(fmaps, ii, jj, coords1, pixel_chunk=0):
 class FactorGraph:
     def __init__(self, video, net, max_factors=48, edge_cap=None,
                  inac_cap=None, pose_cap=None, depth_cap=None,
-                 update_chunk=None, state_dtype=torch.float32):
+                 update_chunk=None, state_dtype=torch.float32,
+                 upsample=False):
         self.video = video
         self.net = net
         self.cfg = video.cfg
         self.dev = video.device
         self.max_factors = max_factors
+        self.upsample = upsample
         self.ht, self.wd = video.fht, video.fwd
 
         self.E = edge_cap or max(self.cfg.frontend_edge_cap, max_factors + 16)
@@ -159,13 +172,19 @@ class FactorGraph:
             corr = edge_correlation(st.fmaps, ii_c, jj_c, coords1, pc)
 
             ix, frames = segment_ids(ii_c)
-            net_new, delta, weight, eta = self.net.update(
+            out = self.net.update(
                 self.net_state[s], st.inps[ii_c], corr, motn,
-                ix=ix, nseg=len(frames))
+                ix=ix, nseg=len(frames), with_upmask=self.upsample)
+            net_new, delta, weight, eta = out[:4]
             self.net_state[s] = net_new.to(self.state_dtype)
             self.target[s] = coords1 + delta
             self.weight[s] = weight
             st.damping[frames] = eta
+            if self.upsample:
+                # the chunk's source frames, from the disparities this
+                # round's BA starts from
+                st.disps_up[frames] = upsample_disp(st.disps[frames],
+                                                    out[4].float())
 
     # -- graph edits ------------------------------------------------------
 

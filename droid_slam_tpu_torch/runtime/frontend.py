@@ -17,7 +17,8 @@ class Frontend:
         # averages over all edges of a frame
         self.graph = FactorGraph(video, net,
                                  max_factors=cfg.frontend_max_factors,
-                                 update_chunk=cfg.frontend_edge_cap)
+                                 update_chunk=cfg.frontend_edge_cap,
+                                 upsample=cfg.upsample)
         self.t0 = 0
         self.t1 = 0
         self.is_initialized = False

@@ -13,6 +13,12 @@ JAX package's and decide the trajectory:
 Slot model: edge stores hold an ACTIVE region [0, EA) that the update
 operator processes and an INACTIVE ring [EA, EA+EI) with retired edges'
 frozen target/weight; the ring overwrites its oldest entry when full.
+
+Stereo: a frame's fmaps hold both cameras and an edge ii == jj correlates
+the left camera with the right one.  RGB-D: the sensor depth of a new
+keyframe seeds its disparity and is the dense BA's prior.  With
+`upsample`, each update round convex-upsamples the solved disparities of
+the frames it updated into `disps_up`.
 """
 
 import dataclasses
@@ -22,10 +28,11 @@ import torch
 
 from ..geom import projective
 from ..models.droidnet import normalize_images
+from ..models.update import upsample_disp
 from ..ops import corr as corr_ops
 from ..ops import dba, distance
 from .factor_graph import DAMPING_EPS, corr_pixel_chunk, edge_correlation
-from .factor_graph import segment_ids
+from .factor_graph import segment_ids, target_fmaps
 from .motion_filter import as_image_batch
 from .proximity import select_proximity_edges
 from .state import disp_from_depth, pool_pyramid
@@ -200,11 +207,12 @@ def volume_cache_fits(cfg, EA, ht, wd):
 def edge_volumes(fmaps, ii, jj):
     """Per-edge correlation-volume pyramid in the lookup kernel's
     query-major layout: list of (E, h·w, h2_l, w2_l) bf16 — a query's
-    plane is contiguous — each an f32 matmul rounded to bf16."""
+    plane is contiguous — each an f32 matmul rounded to bf16.  A stereo
+    edge ii == jj correlates with the right camera."""
     E, _, h, w, C = fmaps[ii].shape
     f1 = fmaps[ii, 0].float().reshape(E, h * w, C) / 4.0
     vols = []
-    for p in pool_pyramid(fmaps[jj, 0]):
+    for p in pool_pyramid(target_fmaps(fmaps, ii, jj)):
         h2, w2 = p.shape[1:3]
         f2 = p.float().reshape(E, h2 * w2, C) / 4.0
         v = torch.bmm(f1, f2.transpose(1, 2)).to(torch.bfloat16)
@@ -226,7 +234,9 @@ class KeyframeStep:
 
     def update_round(self, g, vols=None):
         """Update operator over the active edges, then dense BA over
-        active ∪ recent-inactive edges."""
+        active ∪ recent-inactive edges; under `upsample`, the solved
+        disparities of the updated frames go through the convex
+        upsampling into `disps_up`."""
         cfg, video = self.cfg, self.video
         st = video.state
         buf = cfg.buffer
@@ -254,9 +264,10 @@ class KeyframeStep:
                     st.fmaps, ii_a, jj_a, coords1,
                     corr_pixel_chunk(cfg, self.EA, ht * wd))
             ix, frames = segment_ids(ii_a)
-            net_new, delta, weight, eta = self.net.update(
+            out = self.net.update(
                 g.net[a], st.inps[ii_a], corr, motn, ix=ix,
-                nseg=len(frames))
+                nseg=len(frames), with_upmask=cfg.upsample)
+            net_new, delta, weight, eta = out[:4]
             g.net[a] = net_new.float()
             g.target[a] = coords1 + delta
             g.weight[a] = weight
@@ -283,6 +294,9 @@ class KeyframeStep:
         st.poses.copy_(torch.where(ok, poses, st.poses))
         st.disps.copy_(torch.where(ok, disps, st.disps))
         g.age = np.where(g.active, g.age + 1, g.age)
+        if len(act) and cfg.upsample:
+            st.disps_up[frames] = upsample_disp(st.disps[frames],
+                                                out[4].float())
         return g
 
     def select_candidates(self, g, t1):
@@ -345,7 +359,7 @@ class KeyframeStep:
 
         if cull:
             ix = t1 - 2
-            shift_down(st, ix)
+            shift_down(st, ix, cfg.upsample)
             touch = g.exist() & ((g.ii == ix) | (g.jj == ix))
             g.ii = np.where(g.ii >= ix, g.ii - 1, g.ii)
             g.jj = np.where(g.jj >= ix, g.jj - 1, g.jj)
@@ -367,9 +381,10 @@ def extrapolate(st, tx):
         st.disps[tx] = st.disps[tx - 1].mean()
 
 
-def shift_down(st, ix):
-    """video[ix] = video[ix+1] for every keyframe buffer but damping."""
-    for name in st.SHIFTED:
+def shift_down(st, ix, upsample):
+    """video[ix] = video[ix+1] for every keyframe buffer but damping;
+    disps_up only under `upsample` (a one-row placeholder otherwise)."""
+    for name in st.SHIFTED + (("disps_up",) if upsample else ()):
         arr = getattr(st, name)
         arr[ix] = arr[ix + 1]
 
@@ -404,8 +419,10 @@ class FusedFrontend:
     def track_frame(self, tstamp, image, depth=None, intrinsics=None,
                     fmap=None, ctx=None):
         """Motion gate vs the last keyframe; on a keyframe, append it and
-        run the keyframe step.  fmap/ctx: precomputed features (batch
-        mode).  Returns True when the frame became a keyframe."""
+        run the keyframe step.  image: (H, W, 3), or (2, H, W, 3) [left,
+        right] for stereo; depth: optional (H, W) metric sensor depth.
+        fmap/ctx: precomputed features (batch mode).  Returns True when
+        the frame became a keyframe."""
         cfg, video = self.cfg, self.video
         st = video.state
         image = as_image_batch(image, video.device)
@@ -452,7 +469,7 @@ class FusedFrontend:
     @torch.no_grad()
     def track_frames(self, tstamps, images, intrinsics=None):
         """Batch mode: fnet and cnet run once over the whole chunk, then
-        the per-frame steps follow in order."""
+        the per-frame steps follow in order.  No sensor depth."""
         imgs = torch.stack([torch.as_tensor(np.asarray(im))
                             for im in images]).to(self.video.device)
         if imgs.ndim == 4:

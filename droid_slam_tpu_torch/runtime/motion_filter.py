@@ -4,6 +4,9 @@ Every incoming frame is encoded (fnet); the flow magnitude against the
 last keyframe is estimated with one update-operator step on the
 correlation of the two feature maps; frames whose mean |delta| exceeds
 the threshold become keyframes (context features are computed only then).
+A stereo frame (2, H, W, 3) stores the features of both cameras; the gate
+and the context features read the left one.  Sensor depth passes through
+to the keyframe.
 """
 
 import torch

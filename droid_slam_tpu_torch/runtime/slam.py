@@ -4,9 +4,12 @@ Composition of the motion filter, frontend, backend and trajectory filler
 over the shared keyframe map: `track()` per frame, `terminate()` for the
 final trajectory (global-BA passes + trajectory fill).
 
-Monocular only in this package: stereo and RGB-D input, the convex
-disparity upsampling and the host-driven (non-fused) frontend raise
-NotImplementedError.
+Input is monocular RGB (H, W, 3), stereo (2, H, W, 3) [left, right]
+under `SLAMConfig(stereo=True)`, or RGB with a metric depth map
+(`track(..., depth=)`, RGB-D).  `SLAMConfig(upsample=True)` keeps the
+keyframes' convex-upsampled full-resolution inverse depths in
+`video.state.disps_up`.  The host-driven (non-fused) frontend is not
+ported: `fused=False` raises NotImplementedError.
 """
 
 import torch
@@ -35,10 +38,6 @@ def resolve_device(device=None):
 class Droid:
     def __init__(self, config: SLAMConfig, weights_path=None, device=None,
                  seed=0):
-        if config.stereo:
-            raise NotImplementedError("stereo input is not ported yet")
-        if config.upsample:
-            raise NotImplementedError("upsample=True is not ported yet")
         if not config.fused:
             raise NotImplementedError("only the fused frontend is ported")
         self.cfg = config
@@ -69,20 +68,20 @@ class Droid:
 
     @torch.no_grad()
     def track(self, tstamp, image, depth=None, intrinsics=None):
-        """Ingest one RGB frame (H, W, 3) uint8; returns True when it
-        passed the motion filter as a keyframe."""
-        if depth is not None:
-            raise NotImplementedError("RGB-D input is not ported yet")
+        """Ingest one frame: RGB (H, W, 3) uint8, or (2, H, W, 3) for a
+        stereo config, with an optional (H, W) metric depth map; returns
+        True when it passed the motion filter as a keyframe."""
         if self.frontend.is_initialized:
-            return self.frontend.track_frame(tstamp, image, None, intrinsics)
-        is_kf = self.filter.track(tstamp, image, None, intrinsics)
+            return self.frontend.track_frame(tstamp, image, depth,
+                                             intrinsics)
+        is_kf = self.filter.track(tstamp, image, depth, intrinsics)
         self.frontend()
         return is_kf
 
     @torch.no_grad()
     def track_batch(self, tstamps, images, intrinsics=None):
-        """A chunk of RGB frames; encoders run once over the chunk once the
-        frontend is initialized."""
+        """A chunk of frames without depth; encoders run once over the chunk
+        once the frontend is initialized."""
         if self.frontend.is_initialized:
             self.frontend.track_frames(tstamps, images, intrinsics)
         else:

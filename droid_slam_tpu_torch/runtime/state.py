@@ -1,9 +1,10 @@
 """Keyframe map state: fixed-capacity buffers on the device + host counter.
 
 Pre-allocated per-keyframe buffers (timestamps, poses, inverse depths,
-sensor depths, intrinsics, correlation/context/GRU features) and the
-geometric operations on them (reproject, frame distance, BA, gauge
-normalization).  Buffers are updated in place.
+sensor depths, convex-upsampled inverse depths, intrinsics,
+correlation/context/GRU features) and the geometric operations on them
+(reproject, frame distance, BA, gauge normalization).  Buffers are
+updated in place.
 """
 
 import dataclasses
@@ -21,18 +22,20 @@ class VideoState:
     poses: torch.Tensor        # (BUF, 7) f32, w2c
     disps: torch.Tensor        # (BUF, h, w) f32, init 1
     disps_sens: torch.Tensor   # (BUF, h, w) f32
+    disps_up: torch.Tensor     # (BUF, H, W) f32; (1, H, W) unless upsample
     intrinsics: torch.Tensor   # (BUF, 4) f32 at 1/8 resolution
-    fmaps: torch.Tensor        # (BUF, rig, h, w, 128) bf16
+    fmaps: torch.Tensor        # (BUF, rig, h, w, 128) bf16, camera 0 left
     nets: torch.Tensor         # (BUF, h, w, 128) f16
     inps: torch.Tensor         # (BUF, h, w, 128) f16
     damping: torch.Tensor      # (BUF, h, w) f32
 
-    # buffers copied by the keyframe shift (everything but damping)
+    # buffers copied by the keyframe shift (everything but damping, and
+    # disps_up, which the shift copies only under upsample)
     SHIFTED = ("tstamp", "poses", "disps", "disps_sens",
                "intrinsics", "fmaps", "nets", "inps")
 
 
-def init_state(buffer, image_size, device, stereo=False):
+def init_state(buffer, image_size, device, stereo=False, upsample=False):
     H, W = image_size
     h, w = H // 8, W // 8
     rig = 2 if stereo else 1
@@ -43,6 +46,10 @@ def init_state(buffer, image_size, device, stereo=False):
         poses=poses,
         disps=torch.ones((buffer, h, w), device=device),
         disps_sens=torch.zeros((buffer, h, w), device=device),
+        # written only by the convex upsampling: a one-row placeholder
+        # otherwise, as (BUF, H, W) f32 is large
+        disps_up=torch.zeros((buffer if upsample else 1, H, W),
+                             device=device),
         intrinsics=torch.zeros((buffer, 4), device=device),
         fmaps=torch.zeros((buffer, rig, h, w, 128), dtype=torch.bfloat16,
                           device=device),
@@ -90,7 +97,7 @@ class DepthVideo:
         self.device = torch.device(device)
         self.counter = 0
         self.state = init_state(config.buffer, config.image_size,
-                                self.device, config.stereo)
+                                self.device, config.stereo, config.upsample)
         self.ht, self.wd = config.image_size
         self.fht, self.fwd = self.ht // 8, self.wd // 8
 
@@ -115,7 +122,7 @@ class DepthVideo:
         st.disps_sens[c] = torch.as_tensor(
             disp_from_depth(depth, (self.fht, self.fwd)))
         st.intrinsics[c] = torch.as_tensor(intrinsics, dtype=torch.float32)
-        st.fmaps[c] = fmap.to(st.fmaps.dtype)
+        st.fmaps[c] = fmap.to(st.fmaps.dtype)   # (1 | rig, h, w, 128)
         st.nets[c] = net.to(st.nets.dtype)
         st.inps[c] = inp.to(st.inps.dtype)
         self.counter += 1

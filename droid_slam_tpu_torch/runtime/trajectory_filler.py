@@ -2,7 +2,8 @@
 
 Non-keyframe frames are processed in batches; each gets an SE3 seed
 interpolated between its bracketing keyframes, edges from both brackets,
-and six motion-only update+BA rounds.
+and six motion-only update+BA rounds.  A stereo stream is filled from its
+left images (the filled frames get no stereo edge).
 """
 
 import numpy as np
@@ -48,6 +49,8 @@ class TrajectoryFiller:
 
         imgs = torch.stack([torch.as_tensor(np.asarray(im))
                             for im in images]).to(dev)
+        if imgs.ndim == 5:
+            imgs = imgs[:, 0]                     # left camera of a rig
         intr = torch.as_tensor(np.stack([np.asarray(i) for i in intrinsics]),
                                dtype=torch.float32, device=dev)
         fmaps = self.net.fnet(normalize_images(imgs))
@@ -69,7 +72,9 @@ class TrajectoryFiller:
         for _ in range(6):
             graph.update(N, N + M, motion_only=True)
 
-        poses = st.poses[N:N + M].cpu().numpy()
+        # a copy: on the CPU .numpy() is a view of the slots the next batch
+        # overwrites
+        poses = st.poses[N:N + M].cpu().numpy().copy()
         video.counter = N
         return poses
 

@@ -18,6 +18,7 @@ import torch
 from ..geom import losses
 from ..lie import se3
 from ..models.droidnet import DroidNet, random_init
+from ..runtime.slam import resolve_device
 
 WEIGHT_DECAY = 1e-5
 
@@ -66,10 +67,10 @@ def make_optimizer(net, cfg):
                              eps=1e-8, weight_decay=WEIGHT_DECAY)
 
 
-def create_train_state(cfg, seed=0, device="cpu"):
-    """A float32 DroidNet with seeded random weights on `device`, and a
-    fresh optimizer."""
-    net = random_init(DroidNet(), seed).float().to(device)
+def create_train_state(cfg, seed=0, device=None):
+    """A float32 DroidNet with seeded random weights on `device` (the CUDA
+    card unless `device="cpu"` is passed), and a fresh optimizer."""
+    net = random_init(DroidNet(), seed).float().to(resolve_device(device))
     return TrainState(net=net, opt=make_optimizer(net, cfg), step=0, cfg=cfg)
 
 

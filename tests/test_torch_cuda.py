@@ -205,12 +205,37 @@ def test_level_pyramid_kernel_matches_reference(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", LEVEL_PYRAMIDS)
+def test_level_v2_pyramid_kernel_matches_reference(case):
+    """The separable training pyramid kernel (the schedule of the
+    four-corner one) vs its plain version on the card, f32 and bf16
+    pyramids: bit for bit, one launch per pyramid, and its one-level form
+    equals level 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    lead, h2, w2, levels = case
+    for dtype in (torch.float32, torch.bfloat16):
+        pyr, coords = _mk_level_pyramid(levels + 11, lead, h2, w2, levels,
+                                        dtype)
+        tcorr.reset_launch_counts()
+        got = tcorr.lookup_pyramid(pyr, coords, impl="level_v2")
+        assert tcorr.launch_counts()["lookup_level_v2_fwd"] == 1
+        want = tcorr.lookup_pyramid_level_v2_reference(pyr, coords)
+        one = tcorr.lookup_level_v2_cuda(pyr[0], coords)
+        torch.cuda.synchronize()
+        assert got.shape == lead + (49 * levels,)
+        assert torch.equal(got, want), float((got - want).abs().max())
+        assert torch.equal(one, got[..., :49])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", LEVEL_PYRAMIDS[1:])
-def test_level_pyramid_gradient_matches_autograd(case):
-    """Gradient through the pyramid autograd.Function on the card (one
-    forward launch, one backward launch per level) vs autograd through the
-    plain pyramid version: 1e-5 absolute on unit-scale gradients, 1e-4
-    relative (other summation order)."""
+@pytest.mark.parametrize("impl", ["level", "level_v2"])
+def test_level_pyramid_gradient_matches_autograd(case, impl):
+    """Gradient through the pyramid autograd.Function on the card under
+    either route (one forward launch, one backward launch per level) vs
+    autograd through the route's plain pyramid version: 1e-5 absolute on
+    unit-scale gradients, 1e-4 relative (other summation order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     lead, h2, w2, levels = case
@@ -219,14 +244,17 @@ def test_level_pyramid_gradient_matches_autograd(case):
                     generator=torch.Generator(device="cuda").manual_seed(3))
     a = [v.clone().requires_grad_(True) for v in pyr]
     tcorr.reset_launch_counts()
-    tcorr.lookup_pyramid(a, coords, impl="level").backward(g)
+    tcorr.lookup_pyramid(a, coords, impl=impl).backward(g)
     counts = tcorr.launch_counts()
     live = sum(v.numel() > 0 for v in pyr)
-    assert counts["lookup_level_fwd"] == 1
+    fwd, plain = {
+        "level": ("lookup_level_fwd", tcorr.lookup_pyramid_level_reference),
+        "level_v2": ("lookup_level_v2_fwd",
+                     tcorr.lookup_pyramid_level_v2_reference)}[impl]
+    assert counts[fwd] == 1
     assert counts["lookup_level_bwd"] == live
     b = [v.clone().requires_grad_(True) for v in pyr]
-    auto = torch.autograd.grad(
-        tcorr.lookup_pyramid_level_reference(b, coords), b, g)
+    auto = torch.autograd.grad(plain(b, coords), b, g)
     for x, y in zip(a, auto):
         torch.testing.assert_close(x.grad, y, atol=1e-5, rtol=1e-4)
 
@@ -271,9 +299,9 @@ def test_accumulate_step_cuda_matches_cpu(impl, monkeypatch):
     64×96, 2 iterations, grad_clip's 0.01 threshold lifted so that no
     element flips across it: loss within 1e-4 relative, the gradient
     tree within 0.5% of its norm (f32 sums in another order).  Every
-    lookup launches its kernels: under "level" one forward per iteration
-    (the whole pyramid), under "level_v2" one per level; the backward one
-    per iteration and level (2 iterations × 4 levels)."""
+    lookup launches its kernels: one forward per iteration under either
+    schedule (the whole pyramid), the backward one per iteration and level
+    (2 iterations × 4 levels)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     import os.path as osp
@@ -315,10 +343,9 @@ def test_accumulate_step_cuda_matches_cpu(impl, monkeypatch):
                         tcorr.launch_counts())
     finally:
         tcorr.set_lookup_impl("level")
-    fwd, n_fwd = (("lookup_level_fwd", 2) if impl == "level"
-                  else ("lookup_level_v2_fwd", 8))
+    fwd = "lookup_level_fwd" if impl == "level" else "lookup_level_v2_fwd"
     assert not any(out["cpu"][2].values())
-    assert out["cuda"][2][fwd] == n_fwd
+    assert out["cuda"][2][fwd] == 2
     assert out["cuda"][2]["lookup_level_bwd"] == 8
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
     num = sum(((out["cuda"][1][k] - v) ** 2).sum()

@@ -188,6 +188,77 @@ def test_pyramid_equals_levels_concatenated(case):
         np.testing.assert_array_equal(x.grad.numpy(), y.grad.numpy())
 
 
+@pytest.mark.parametrize("case", LEVEL_PYRAMIDS)
+def test_pyramid_v2_reference_matches_pallas_v2(case):
+    """The plain separable pyramid version, level by level against
+    `lookup_level_pallas_v2` in interpret mode and as a whole against the
+    JAX package's `lookup_pyramid`: 5e-6 on f32 volumes; its one-level form
+    is its level 0, bit for bit."""
+    lead, h2, w2, levels = case
+    pyr, coords = _mk_pyramid(h2 + levels + 2, lead, h2, w2, levels)
+    got = tcorr.lookup_pyramid_level_v2_reference(pyr, coords).numpy()
+    assert got.shape == lead + (49 * levels,)
+    for l, vol in enumerate(pyr):
+        want = _pallas(corr_pallas.lookup_level_pallas_v2,
+                       jnp.asarray(vol.numpy()),
+                       jnp.asarray(coords.numpy() / np.float32(2 ** l)))
+        np.testing.assert_allclose(got[..., 49 * l:49 * (l + 1)], want,
+                                   atol=5e-6, rtol=5e-6)
+    want = np.asarray(jcorr.lookup_pyramid(
+        [jnp.asarray(v.numpy()) for v in pyr], jnp.asarray(coords.numpy())))
+    np.testing.assert_allclose(got, want, atol=5e-6, rtol=5e-6)
+    np.testing.assert_array_equal(
+        tcorr.lookup_level_v2_reference(pyr[0], coords).numpy(),
+        got[..., :49])
+
+
+@pytest.mark.parametrize("case", LEVEL_PYRAMIDS)
+def test_pyramid_v2_equals_levels_concatenated(case):
+    """`lookup_pyramid` under "level_v2" is one call for the whole pyramid
+    and equals the per-level lookups at coords / 2^l concatenated, bit for
+    bit, gradients included."""
+    lead, h2, w2, levels = case
+    pyr, coords = _mk_pyramid(h2 + levels + 3, lead, h2, w2, levels)
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        lead + (49 * levels,)).astype(np.float32))
+    a = [v.clone().requires_grad_(True) for v in pyr]
+    b = [v.clone().requires_grad_(True) for v in pyr]
+    got = tcorr.lookup_pyramid(a, coords, impl="level_v2")
+    want = torch.cat([tcorr.lookup_level(v, coords / 2 ** l,
+                                         impl="level_v2")
+                      for l, v in enumerate(b)], dim=-1)
+    np.testing.assert_array_equal(got.detach().numpy(),
+                                  want.detach().numpy())
+    got.backward(g)
+    want.backward(g)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.grad.numpy(), y.grad.numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pyramid_v2_gradient_matches_jax_grad(seed):
+    """The gradient of `lookup_pyramid(impl="level_v2")` with respect to
+    every level vs jax.grad of the JAX package's `lookup_pyramid` for a
+    random cotangent: 1e-5 absolute on unit-scale gradients (other
+    summation order)."""
+    pyr, coords = _mk_pyramid(20 + seed, (1, 2, 4, 6), 16, 20, 4)
+    g = np.random.default_rng(seed).standard_normal(
+        (1, 2, 4, 6, 196)).astype(np.float32)
+
+    def f(levels):
+        return jnp.sum(jcorr.lookup_pyramid(levels,
+                                            jnp.asarray(coords.numpy()))
+                       * jnp.asarray(g))
+
+    want = jax.grad(f)([jnp.asarray(v.numpy()) for v in pyr])
+    a = [v.clone().requires_grad_(True) for v in pyr]
+    tcorr.lookup_pyramid(a, coords, impl="level_v2").backward(
+        torch.from_numpy(g))
+    for x, y in zip(a, want):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(y), atol=1e-5,
+                                   rtol=1e-5)
+
+
 def test_pyramid_function_gradient_matches_autograd():
     """The pyramid autograd.Function on CPU tensors: its gradient is
     autograd's gradient of the plain pyramid forward (1e-5, summation
@@ -245,6 +316,10 @@ def test_set_lookup_impl_routes_lookup_pyramid():
     for fn in (tcorr.lookup_level_cuda, tcorr.lookup_level_v2_cuda):
         with pytest.raises(ValueError, match="CUDA"):
             fn(vol, coords)
+    for fn in (tcorr.lookup_pyramid_level_cuda,
+               tcorr.lookup_pyramid_level_v2_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(pyr, coords)
     with pytest.raises(ValueError, match="CUDA"):
         tcorr.lookup_level_backward_cuda(
             torch.zeros(1, 2, 8, 8, 49), coords, 8, 8)

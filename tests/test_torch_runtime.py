@@ -13,11 +13,11 @@
   near 10.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_common import TINY, WEIGHTS, tiny_seq, widen_onehot
+from torch_port_common import (TINY, WEIGHTS, copy_graph, copy_video,
+                               tiny_seq, widen_onehot)
 
 from droid_slam_tpu import native
 from droid_slam_tpu_torch.runtime import fused as tfused
@@ -49,7 +49,7 @@ class _Video:
 
     def __init__(self, h, w, nets):
         cfg = type("C", (), {"buffer": 8, "image_size": (8 * h, 8 * w),
-                             "stereo": False})
+                             "stereo": False, "upsample": False})
         self.video = DepthVideo(cfg, "cpu")
         self.video.state.disps.fill_(1.0)
         self.video.state.intrinsics.copy_(
@@ -122,30 +122,6 @@ def test_build_kx():
 # staged pipeline parity
 # ---------------------------------------------------------------------------
 
-_FIELDS = ("tstamp", "poses", "disps", "disps_sens", "intrinsics",
-           "fmaps", "nets", "inps", "damping")
-
-
-def _copy_video(jd, td):
-    js, ts = jd.video.state, td.video.state
-    for f in _FIELDS:
-        a = getattr(js, f)
-        if f in ("fmaps", "nets", "inps"):
-            a = a.astype(jnp.float32)
-        getattr(ts, f).copy_(torch.from_numpy(np.array(a)))
-    td.video.counter = jd.video.counter
-
-
-def _copy_graph(jd, td):
-    jg, tg = jd.frontend.gstate, td.frontend.g
-    for f in ("ii", "jj", "age", "seq", "active", "inac"):
-        setattr(tg, f, np.array(getattr(jg, f)).astype(getattr(tg, f).dtype))
-    tg.ring_ptr, tg.tick = int(jg.ring_ptr), int(jg.tick)
-    for f in ("target", "weight", "net"):
-        getattr(tg, f).copy_(torch.from_numpy(np.array(getattr(jg, f))))
-    td.frontend.t1 = jd.frontend.t1
-
-
 def _assert_state_close(jd, td):
     n = jd.video.counter
     assert td.video.counter == n
@@ -177,8 +153,8 @@ def test_staged_pipeline_matches_jax(monkeypatch):
     assert (tg.ring_ptr, tg.tick) == (int(jg.ring_ptr), int(jg.tick))
 
     for k in range(5, 12):                   # one fused step per frame
-        _copy_video(jd, td)
-        _copy_graph(jd, td)
+        copy_video(jd, td)
+        copy_graph(jd, td)
         jd.track(float(k), imgs[k], intrinsics=intr)
         jd._sync()
         td.track(float(k), imgs[k], intrinsics=intr)
@@ -189,12 +165,12 @@ def test_staged_pipeline_matches_jax(monkeypatch):
             zip(ja.tolist(), jb.tolist()))
 
     for steps in (2, 2):                     # global BA passes
-        _copy_video(jd, td)
+        copy_video(jd, td)
         jd.backend(steps)
         td.backend(steps)
         _assert_state_close(jd, td)
 
-    _copy_video(jd, td)
+    copy_video(jd, td)
     stream = [(float(k), im, intr) for k, im in enumerate(imgs)]
     want = jd.traj_filler(iter(stream))
     got = td.traj_filler(iter(stream))

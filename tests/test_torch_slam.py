@@ -140,15 +140,17 @@ def test_droid_batch_matches_per_frame(port_run):
 
 
 def test_unported_inputs_raise():
+    """The host-driven frontend is the one part of `Droid` not ported;
+    stereo, upsampling and depth input run (tests/test_torch_stereo.py,
+    tests/test_torch_rgbd.py)."""
     from droid_slam_tpu_torch.config import SLAMConfig
     from droid_slam_tpu_torch.runtime.slam import Droid
 
     small = dict(image_size=(32, 48), buffer=8, compute_dtype="float32")
-    for bad in (dict(stereo=True), dict(upsample=True), dict(fused=False)):
-        with pytest.raises(NotImplementedError):
-            Droid(SLAMConfig(**small, **bad), device="cpu")
-    d = Droid(SLAMConfig(**small), device="cpu")
     with pytest.raises(NotImplementedError):
-        d.track(0.0, np.zeros((32, 48, 3), np.uint8),
-                depth=np.ones((32, 48), np.float32),
-                intrinsics=np.array([40.0, 40.0, 24.0, 16.0], np.float32))
+        Droid(SLAMConfig(**small, fused=False), device="cpu")
+    for ok in (dict(stereo=True), dict(upsample=True)):
+        d = Droid(SLAMConfig(**small, **ok), device="cpu")
+        assert d.video.state.fmaps.shape[1] == (2 if ok.get("stereo") else 1)
+        assert d.video.state.disps_up.shape[0] == (8 if ok.get("upsample")
+                                                   else 1)

@@ -147,6 +147,19 @@ def test_train_refuses_cuda_without_a_card():
         trainer.train(cfg, dataset=None)
 
 
+def test_create_train_state_defaults_to_the_card():
+    """Without `device`, the train state goes to the CUDA card, as `Droid`
+    and `train` do: on a machine without one it raises instead of falling
+    back to the CPU."""
+    cfg = TrainConfig(image_size=(32, 48), n_frames=3, steps=10)
+    if torch.cuda.is_available():
+        state = tts.create_train_state(cfg)
+        assert next(state.net.parameters()).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tts.create_train_state(cfg)
+
+
 def test_pad_edges_and_capacity():
     ii, jj, m = tts.pad_edges([1, 2, 3], [0, 1, 2], 8)
     assert ii.tolist() == [1, 2, 3, 0, 0, 0, 0, 0] and m.sum() == 3

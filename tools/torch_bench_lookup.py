@@ -7,18 +7,20 @@ Shapes and coordinates are those of chip_smoke.py's kernel phases:
   * serving: 64 edges x 1200 queries (240x320 at 1/8), four levels of bf16
     query-major planes, `lookup_pyramid_flat_cuda`;
   * training: 40 edge slots x 48x64 queries (384x512 at 1/8), four levels
-    of an f32 pyramid, `lookup_pyramid_level_cuda`;
+    of an f32 pyramid, `lookup_pyramid_level_cuda` (four-corner combine)
+    and `lookup_pyramid_level_v2_cuda` (separable combine);
 identity grid plus a 2 px flow, ~2% of the queries far out of bounds.
 
 --csrc DIR   times the same entry points built from another source
              directory (a variant of csrc/ with the same C interface), for
              experiments such as a kernel without its stores.
---baseline   a checkout of an earlier revision of this repository whose
-             lookups went level by level (`lookup_flat_cuda` on query-last
-             (E, h2, w2, Q) volumes, `lookup_level_cuda` on 6-D levels).
-             Timed twice: its kernels alone (four launches on pre-scaled
+--baseline   a checkout of an earlier revision of this repository with the
+             same serving and four-corner pyramid entry points, whose
+             separable lookup went level by level (`lookup_level_v2_cuda`
+             on coordinates in level units).  Its separable lookup is
+             timed twice: its kernel alone (four launches on pre-scaled
              coordinates) and the pyramid as its callers ran it
-             (`lookup_pyramid_flat` / `lookup_pyramid`: four divides, four
+             (`lookup_pyramid(impl="level_v2")`: four divides, four
              launches, one concatenation).  Its taps must equal this
              tree's bit for bit.
 
@@ -121,21 +123,32 @@ def main():
         print(f"--- nvcc {name} ---\n{log.strip()}", flush=True)
     vols, c_serv = serving_case()
     pyramid, c_train = training_case(corr)
-    want_serv = corr.lookup_pyramid_flat_cuda(vols, c_serv)
-    want_train = corr.lookup_pyramid_level_cuda(pyramid, c_train)
+    want = dict(
+        serving_ms=corr.lookup_pyramid_flat_cuda(vols, c_serv),
+        training_ms=corr.lookup_pyramid_level_cuda(pyramid, c_train),
+        training_v2_ms=corr.lookup_pyramid_level_v2_cuda(pyramid, c_train))
     torch.cuda.synchronize()
-    for got, ref in ((want_serv,
-                      corr.lookup_pyramid_flat_reference(vols, c_serv)),
-                     (want_train,
-                      corr.lookup_pyramid_level_reference(pyramid, c_train))):
-        if not torch.equal(got, ref):
-            raise RuntimeError(f"kernel differs from its plain version by "
-                               f"{float((got - ref).abs().max())}")
+    plain = dict(
+        serving_ms=corr.lookup_pyramid_flat_reference(vols, c_serv),
+        training_ms=corr.lookup_pyramid_level_reference(pyramid, c_train),
+        training_v2_ms=corr.lookup_pyramid_level_v2_reference(pyramid,
+                                                              c_train))
+    for k, got in want.items():
+        if not torch.equal(got, plain[k]):
+            raise RuntimeError(f"{k}: kernel differs from its plain version "
+                               f"by {float((got - plain[k]).abs().max())}")
+    del plain
 
-    # name -> (serving call, training call)
-    cands = {"tree": (
-        lambda: corr.lookup_pyramid_flat_cuda(vols, c_serv),
-        lambda: corr.lookup_pyramid_level_cuda(pyramid, c_train))}
+    def calls(c):
+        """The three pyramid lookups of package `c` on this tree's inputs."""
+        return dict(
+            serving_ms=lambda: c.lookup_pyramid_flat_cuda(vols, c_serv),
+            training_ms=lambda: c.lookup_pyramid_level_cuda(pyramid, c_train),
+            training_v2_ms=lambda: c.lookup_pyramid_level_v2_cuda(pyramid,
+                                                                  c_train))
+
+    # name -> {measure: call}
+    cands = {"tree": calls(corr)}
 
     for k, csrc in enumerate(args.csrc):
         vcorr, vbuild = load_package(f"lookup_variant{k}", ROOT)
@@ -147,49 +160,47 @@ def main():
                     and ("Used" in ln or "spill" in ln)]
             print(f"--- nvcc {csrc} {name} ---\n" + "\n".join(used),
                   flush=True)
-        cands[f"csrc:{csrc}"] = (
-            lambda c=vcorr: c.lookup_pyramid_flat_cuda(vols, c_serv),
-            lambda c=vcorr: c.lookup_pyramid_level_cuda(pyramid, c_train))
+        cands[f"csrc:{csrc}"] = calls(vcorr)
 
     if args.baseline:
         bcorr, bbuild = load_package("lookup_baseline",
                                      os.path.abspath(args.baseline))
         bbuild.build_all(force=True)
-        qlast = [v.permute(0, 2, 3, 1).contiguous() for v in vols]
-        cs = [c_serv / 2 ** l for l in range(4)]
         ct = [c_train / 2 ** l for l in range(4)]
         with torch.no_grad():
-            got_serv = bcorr.lookup_pyramid_flat(qlast, c_serv)
-            got_train = bcorr.lookup_pyramid(pyramid, c_train, impl="level")
+            got = dict(
+                serving_ms=bcorr.lookup_pyramid_flat_cuda(vols, c_serv),
+                training_ms=bcorr.lookup_pyramid_level_cuda(pyramid,
+                                                            c_train),
+                training_v2_ms=bcorr.lookup_pyramid(pyramid, c_train,
+                                                    impl="level_v2"))
         torch.cuda.synchronize()
-        if not (torch.equal(got_serv, want_serv)
-                and torch.equal(got_train, want_train)):
-            raise RuntimeError("the baseline's taps differ from this tree's")
+        for k, g in got.items():
+            if not torch.equal(g, want[k]):
+                raise RuntimeError(f"{k}: the baseline's taps differ from "
+                                   f"this tree's")
 
-        def base_kernels_serv():
-            for v, c in zip(qlast, cs):
-                bcorr.lookup_flat_cuda(v, c)
-
-        def base_kernels_train():
+        def base_v2_kernels():
             for v, c in zip(pyramid, ct):
-                bcorr.lookup_level_cuda(v, c)
+                bcorr.lookup_level_v2_cuda(v, c)
 
-        def base_pyramid_train():
+        def base_v2_as_called():
             with torch.no_grad():
-                bcorr.lookup_pyramid(pyramid, c_train, impl="level")
+                bcorr.lookup_pyramid(pyramid, c_train, impl="level_v2")
 
-        cands["baseline kernels"] = (base_kernels_serv, base_kernels_train)
-        cands["baseline pyramid"] = (
-            lambda: bcorr.lookup_pyramid_flat(qlast, c_serv),
-            base_pyramid_train)
+        cands["baseline"] = dict(
+            serving_ms=lambda: bcorr.lookup_pyramid_flat_cuda(vols, c_serv),
+            training_ms=lambda: bcorr.lookup_pyramid_level_cuda(pyramid,
+                                                                c_train),
+            training_v2_ms=base_v2_kernels,
+            training_v2_as_called_ms=base_v2_as_called)
 
     names = list(cands)
-    times = {n: dict(serving_ms=[], training_ms=[]) for n in names}
+    times = {n: {k: [] for k in cands[n]} for n in names}
     for turn in (names, names[::-1]) * 2:
         for n in turn:
-            serv, train = cands[n]
-            times[n]["serving_ms"].append(cuda_time_ms(serv))
-            times[n]["training_ms"].append(cuda_time_ms(train))
+            for k, fn in cands[n].items():
+                times[n][k].append(cuda_time_ms(fn))
     print(json.dumps(dict(card=card, times=times)), flush=True)
     return 0
 
