@@ -45,6 +45,25 @@
       were written (raises if none) and their median relative inverse-
       depth error, and raises unless the alignment's scale is within 0.1
       of 1 (the depth prior fixes metric scale).
+   d. cli path, through the user's entry point: the box scene rendered at
+      480×640 (80 frames) is written as PNG files with a 4-value
+      calib.txt, and `python -m droid_slam_tpu_torch.demo --imagedir ...
+      --export_ply ... --output ...` runs as a subprocess on the card
+      (its stream resizes to 384×512, the demo's default width; its
+      launch counts start at 0 in the new process and its summary line
+      reports them).  Raises unless the trajectory file holds one
+      unit-quaternion pose per frame with an ATE after Sim(3) alignment
+      under 10% of the path, the PLY has points and the lookup kernel was
+      launched.  Then holds the lookup kernel against its plain version
+      on this path's own 512-pixel query blocks (features and poses of an
+      in-process run of the same stream, as in b) and times one block;
+      prints keyframes, frames/s, terminate s, ATE, launches, peak
+      memory, the block time and the PNG decode time per frame.
+   e. tum eval path: `python -m droid_slam_tpu_torch.evaluate tum` on
+      tests/fixtures/tum_tiny (10 frames, stride 1, warmup 5, filter 0)
+      as a subprocess: undistortion, the 352×256 resize and the crop of
+      the TUM stream without OpenCV; raises unless it prints a finite ATE
+      over 10 poses.
 4. Training main path at the full width of `TrainConfig()` (384×512, 7
    frames, 15 iterations, 40 edge slots, f32): `train(...)` for a few
    optimizer steps from a seeded initialisation on a small synthetic
@@ -58,7 +77,8 @@
 5. Prints the card's name and power limit, one {"kernels": [...]} line,
    and as the last line {"ok": true, "device": {...}}.
 
-Any failed phase raises, so the script exits non-zero.  It needs a CUDA
+Trajectory errors come from the package's own `geom/align.py`.  Any
+failed phase raises, so the script exits non-zero.  It needs a CUDA
 card: without one it exits 1 before printing any result.
 """
 
@@ -474,21 +494,20 @@ def training_phase(corr):
     return out
 
 
-def umeyama_ate(est, gt):
-    """ATE RMSE of est (N,3) vs gt (N,3) after a Sim(3) alignment, and the
-    alignment's scale."""
-    mu_e, mu_g = est.mean(0), gt.mean(0)
-    e, g = est - mu_e, gt - mu_g
-    cov = g.T @ e / len(est)
-    U, D, Vt = np.linalg.svd(cov)
-    S = np.eye(3)
-    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
-        S[2, 2] = -1
-    R = U @ S @ Vt
-    var = (e ** 2).sum() / len(est)
-    s = np.trace(np.diag(D) @ S) / max(var, 1e-12)
-    aligned = s * (R @ e.T).T + mu_g
-    return float(np.sqrt(((aligned - gt) ** 2).sum(-1).mean())), float(s)
+def trajectory_error(label, traj, poses_c2w):
+    """ATE after a Sim(3) alignment of traj (N, 7) to the ground truth,
+    the alignment's scale and the path length; raises unless the ATE is
+    under 10% of the path."""
+    from droid_slam_tpu_torch.geom.align import ate_rmse, umeyama
+
+    gt = np.asarray(poses_c2w, np.float64)[:, :3]
+    ate = ate_rmse(gt, traj[:, :3])
+    scale = umeyama(traj[:, :3], gt)[0]
+    path = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    if not ate < 0.1 * path:
+        raise RuntimeError(f"{label}: ATE {ate} exceeds 10% of the path "
+                           f"{path}")
+    return ate, scale, path
 
 
 def serving_phase(corr, label, cfg, scene, with_depth=False):
@@ -550,12 +569,7 @@ def serving_phase(corr, label, cfg, scene, with_depth=False):
     if launches <= 0:
         raise RuntimeError(f"{label}: the path never launched the lookup "
                            f"kernel")
-    gt = scene["poses_c2w"][:, :3]
-    ate, scale = umeyama_ate(traj[:, :3], gt)
-    path = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
-    if not ate < 0.1 * path:
-        raise RuntimeError(f"{label}: ATE {ate} exceeds 10% of the path "
-                           f"{path}")
+    ate, scale, path = trajectory_error(label, traj, scene["poses_c2w"])
     out = dict(frames=n_frames, filter_passed=passed, keyframes=n_kf,
                track_s=t_track, track_fps=n_frames / t_track,
                terminate_s=t_term, ate_rmse=ate, sim3_scale=scale,
@@ -580,13 +594,13 @@ def serving_phase(corr, label, cfg, scene, with_depth=False):
     return out, droid, stereo_edges
 
 
-def stereo_kernel_check(corr, cfg, droid, ii, jj):
-    """The serving lookup kernel at the stereo path's shapes, on the run's
-    own features and poses: the on-the-fly volumes of the frontend edges
-    (ii, jj), ii == jj ones read from the right camera, in the keyframe
-    step's blocks of query pixels.  Holds the kernel against its plain
-    version block by block and the path's `edge_correlation` against the
-    kernel's taps; times one block."""
+def block_kernel_check(corr, cfg, droid, ii, jj):
+    """The serving lookup kernel at the shapes of a path that correlates
+    on the fly, on the run's own features and poses: the volumes of the
+    frontend edges (ii, jj), ii == jj ones read from the right camera, in
+    the keyframe step's blocks of query pixels.  Holds the kernel against
+    its plain version block by block and the path's `edge_correlation`
+    against the kernel's taps; times one block."""
     from droid_slam_tpu_torch.geom import projective
     from droid_slam_tpu_torch.runtime.factor_graph import (
         corr_pixel_chunk, edge_correlation, target_fmaps)
@@ -664,7 +678,7 @@ def stereo_phase(corr, n_frames):
         raise RuntimeError("stereo path: no ii == jj edge in the frontend "
                            "graph")
     # after the launch counts were read: these launches only compare
-    out["kernel_check"] = stereo_kernel_check(corr, cfg, droid, *edges)
+    out["kernel_check"] = block_kernel_check(corr, cfg, droid, *edges)
     print("stereo path: " + json.dumps(out), flush=True)
     return out
 
@@ -696,6 +710,143 @@ def rgbd_phase(corr, n_frames):
     return out
 
 
+def run_cli(args, label, timeout):
+    """`python -m <args>` from the repository root; its standard output,
+    raising with its output when it fails."""
+    res = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                         text=True, timeout=timeout)
+    if res.returncode != 0:
+        raise RuntimeError(f"{label}: exit {res.returncode}\n"
+                           f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+    return res.stdout
+
+
+def cli_path_phase(corr, n_frames):
+    """The demo CLI on PNG files of the box scene at 480×640, as a
+    subprocess on the card; then the lookup kernel on this path's own
+    query blocks."""
+    import dataclasses
+
+    from droid_slam_tpu_torch.config import PRESETS
+    from droid_slam_tpu_torch.data import image_io, streams
+    from droid_slam_tpu_torch.data.synthetic import render_box_scene
+    from droid_slam_tpu_torch.runtime.slam import Droid
+
+    H, W = 480, 640
+    t = time.time()
+    scene = render_box_scene(n_frames, H, W, seed=1, motion_scale=0.12)
+    print(f"cli scene: {n_frames} frames {H}x{W} rendered in "
+          f"{time.time() - t:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        imagedir = os.path.join(tmp, "images")
+        os.makedirs(imagedir)
+        paths = [image_io.write_png(os.path.join(imagedir, f"{k:06d}.png"),
+                                    im) for k, im in enumerate(
+                                        scene["images"])]
+        calib = os.path.join(tmp, "calib.txt")
+        np.savetxt(calib, scene["intrinsics"][0][None], fmt="%.6f")
+        t = time.time()
+        for p in paths:
+            image_io.read_png(p)
+        decode_ms = (time.time() - t) / n_frames * 1e3
+
+        traj_path = os.path.join(tmp, "traj.txt")
+        ply = os.path.join(tmp, "map.ply")
+        t = time.time()
+        stdout = run_cli(["droid_slam_tpu_torch.demo", "--imagedir",
+                          imagedir, "--calib", calib, "--weights",
+                          "weights/droid_synth.npz", "--export_ply", ply,
+                          "--output", traj_path], "cli path", 600)
+        wall_s = time.time() - t
+        summary = json.loads(stdout.strip().splitlines()[-1])
+        out_traj = np.loadtxt(traj_path)
+        with open(ply) as f:
+            n_points = int(f.read(200).splitlines()[2].split()[-1])
+
+        if out_traj.shape != (n_frames, 8) or not np.isfinite(
+                out_traj).all():
+            raise RuntimeError(f"cli path: trajectory file of shape "
+                               f"{out_traj.shape}, expected ({n_frames}, 8)")
+        np.testing.assert_array_equal(out_traj[:, 0], np.arange(n_frames))
+        qn = np.linalg.norm(out_traj[:, 4:], axis=-1)
+        if np.abs(qn - 1).max() > 1e-3:
+            raise RuntimeError(f"cli path: non-unit quaternions: "
+                               f"{np.abs(qn - 1).max()}")
+        ate, scale, path = trajectory_error("cli path", out_traj[:, 1:],
+                                            scene["poses_c2w"])
+        if n_points <= 0 or n_points != summary["ply_points"]:
+            raise RuntimeError(f"cli path: PLY holds {n_points} points, the "
+                               f"demo reported {summary['ply_points']}")
+        launches = summary["launches"]["corr_lookup"]
+        if launches <= 0:
+            raise RuntimeError("cli path: the demo never launched the "
+                               "lookup kernel")
+
+        # this path's blocks: the same stream in-process, until its
+        # frontend has run a few keyframe steps
+        size = tuple(summary["image_size"])
+        cfg = dataclasses.replace(PRESETS["demo"], image_size=size)
+        droid = Droid(cfg, weights_path="weights/droid_synth.npz")
+        steps = 0
+        for k, image, intr in streams.directory_stream(
+                imagedir, calib, target_area=size[0] * size[1]):
+            is_kf = droid.track(k, image, intrinsics=intr)
+            steps += int(is_kf and droid.frontend.is_initialized)
+            if steps >= 3:
+                break
+        edges = droid.frontend.active_edges()
+        if steps < 3 or len(edges[0]) == 0:
+            raise RuntimeError(f"cli path: the in-process run took {steps} "
+                               f"keyframe steps, {len(edges[0])} edges")
+        check = block_kernel_check(corr, cfg, droid, *edges)
+    out = dict(frames=n_frames, image_size=summary["image_size"],
+               keyframes=summary["keyframes"],
+               track_fps=n_frames / summary["track_s"],
+               terminate_s=summary["terminate_s"], wall_s=wall_s,
+               ate_rmse=ate, sim3_scale=scale, path_length=path,
+               ply_points=n_points, lookup_launches=launches,
+               launches=summary["launches"],
+               peak_mem_bytes=summary["peak_mem_bytes"],
+               stream_ms_per_frame=summary["stream_s"] / n_frames * 1e3,
+               png_decode_ms_per_frame=decode_ms, kernel_check=check)
+    print("cli path: " + json.dumps(out), flush=True)
+    return out
+
+
+def tum_eval_phase():
+    """The TUM evaluation CLI on tests/fixtures/tum_tiny, as a
+    subprocess on the card; and the PNG decode time of its camera files
+    (rows mostly Paeth-filtered, the decoder's slow path)."""
+    import glob
+    import re
+
+    from droid_slam_tpu_torch.data import image_io
+
+    files = sorted(glob.glob("tests/fixtures/tum_tiny/rgb/*.png"))
+    image_io.read_png(files[0])
+    t = time.time()
+    for f in files:
+        image_io.read_png(f)
+    decode_ms = (time.time() - t) / len(files) * 1e3
+    t = time.time()
+    stdout = run_cli(["droid_slam_tpu_torch.evaluate", "tum", "--datapath",
+                      "tests/fixtures/tum_tiny", "--weights",
+                      "weights/droid_synth.npz", "--stride", "1",
+                      "--warmup", "5", "--filter_thresh", "0"],
+                     "tum eval path", 300)
+    line = stdout.strip().splitlines()[-1]
+    m = re.search(r"ATE RMSE \(Sim3-aligned\) = (\S+) m over (\d+) poses",
+                  line)
+    if not m or not np.isfinite(float(m.group(1))) or int(m.group(2)) != 10:
+        raise RuntimeError(f"tum eval path: expected a finite ATE over 10 "
+                           f"poses, got: {line}")
+    out = dict(ate_rmse=float(m.group(1)), poses=int(m.group(2)),
+               wall_s=time.time() - t, png_decode_ms_per_frame=decode_ms,
+               line=line)
+    print("tum eval path: " + json.dumps(out), flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -723,6 +874,8 @@ def main():
     main = main_path_phase(corr, FRAMES)
     stereo = stereo_phase(corr, FRAMES_STEREO_RGBD)
     rgbd_phase(corr, FRAMES_STEREO_RGBD)
+    cli = cli_path_phase(corr, FRAMES)
+    tum_eval_phase()
     training = training_phase(corr)
 
     def bound_by(rep):
@@ -733,15 +886,20 @@ def main():
         source="droid_slam_tpu_torch/csrc/corr_lookup.cu",
         replaces="droid_slam_tpu/ops/corr_pallas.py:333 "
                  "(lookup_flat_pallas_v3)",
-        launches=main["lookup_launches"],
+        launches=cli["lookup_launches"],
+        launches_by_path=dict(mono=main["lookup_launches"],
+                              stereo=stereo["lookup_launches"],
+                              cli=cli["lookup_launches"]),
         max_abs_err=max(kern["max_abs_err"],
-                        stereo["kernel_check"]["max_abs_err"]),
+                        stereo["kernel_check"]["max_abs_err"],
+                        cli["kernel_check"]["max_abs_err"]),
         ms=kern["ms"], plain_ms=kern["plain_ms"],
         bound_ms=kern["bound_ms"], bound_by=bound_by(kern),
         library_ms=kern["library_ms"],
         note="ms per 4-level pyramid lookup of 64 edges at 240x320 in "
-             "one launch, identity grid plus a small flow; max_abs_err "
-             "also over the stereo path's blocks",
+             "one launch, identity grid plus a small flow; launches on "
+             "the cli path (the demo at 384x512); max_abs_err also over "
+             "the stereo and cli paths' blocks",
     )]
     replaces = {
         "lookup_level_fwd": "droid_slam_tpu/ops/corr_pallas.py:83 "

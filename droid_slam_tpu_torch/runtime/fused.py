@@ -35,7 +35,7 @@ from .factor_graph import DAMPING_EPS, corr_pixel_chunk, edge_correlation
 from .factor_graph import segment_ids, target_fmaps
 from .motion_filter import as_image_batch
 from .proximity import select_proximity_edges
-from .state import disp_from_depth, pool_pyramid
+from .state import disp_from_depth, keyframe_colors, pool_pyramid
 
 _SEQ_MOD = 1 << 20      # LRU tie-break modulus (age ⋅ 2²⁰ + reversed seq)
 
@@ -459,6 +459,7 @@ class FusedFrontend:
         st.fmaps[c] = fmap.to(torch.bfloat16)
         st.nets[c] = netc.to(st.nets.dtype)
         st.inps[c] = inpc.to(st.inps.dtype)
+        st.colors[c] = keyframe_colors(image)
         video.counter = c + 1
         self.t1 += 1
         self.g, cull = self.step(self.g, self.t1)

@@ -17,9 +17,10 @@ from ..ops import corr as corr_ops
 
 
 def as_image_batch(image, device):
-    """(H, W, 3) or (rig, H, W, 3) uint8 image(s) -> (rig, H, W, 3) tensor
-    on `device`."""
-    image = torch.as_tensor(image).to(device)
+    """(H, W, 3) or (rig, H, W, 3) uint8 image(s) -> (rig, H, W, 3)
+    contiguous tensor on `device` (the network's result must not depend
+    on the memory layout of the caller's array)."""
+    image = torch.as_tensor(image).to(device).contiguous()
     return image[None] if image.ndim == 3 else image
 
 
@@ -75,5 +76,5 @@ class MotionFilter:
         knet, kinp = self.context(image[0])
         self.fmap, self.knet, self.kinp = fmap, knet, kinp
         self.video.append(tstamp, pose, None, depth, intr8,
-                          fmap.to(torch.bfloat16), knet, kinp)
+                          fmap.to(torch.bfloat16), knet, kinp, image=image)
         return True

@@ -28,11 +28,12 @@ class VideoState:
     nets: torch.Tensor         # (BUF, h, w, 128) f16
     inps: torch.Tensor         # (BUF, h, w, 128) f16
     damping: torch.Tensor      # (BUF, h, w) f32
+    colors: torch.Tensor       # (BUF, h, w, 3) uint8 RGB at [3::8, 3::8]
 
     # buffers copied by the keyframe shift (everything but damping, and
     # disps_up, which the shift copies only under upsample)
     SHIFTED = ("tstamp", "poses", "disps", "disps_sens",
-               "intrinsics", "fmaps", "nets", "inps")
+               "intrinsics", "fmaps", "nets", "inps", "colors")
 
 
 def init_state(buffer, image_size, device, stereo=False, upsample=False):
@@ -61,6 +62,10 @@ def init_state(buffer, image_size, device, stereo=False, upsample=False):
         inps=torch.zeros((buffer, h, w, 128), dtype=torch.float16,
                          device=device),
         damping=torch.full((buffer, h, w), 1e-6, device=device),
+        # the left image at the disparity pixels' centres: the colours of
+        # the exported point cloud (runtime/visualization.py)
+        colors=torch.zeros((buffer, h, w, 3), dtype=torch.uint8,
+                           device=device),
     )
 
 
@@ -77,6 +82,12 @@ def pool_pyramid(x, levels=4):
              .to(x.dtype))
         out.append(x)
     return out
+
+
+def keyframe_colors(image):
+    """(rig, H, W, 3) uint8 tensor -> (h, w, 3): the left camera at the
+    centres of the 8x8 cells of the disparity map."""
+    return image[0, 3::8, 3::8]
 
 
 def disp_from_depth(depth, shape):
@@ -102,12 +113,14 @@ class DepthVideo:
         self.fht, self.fwd = self.ht // 8, self.wd // 8
 
     def append(self, tstamp, pose, disp, depth, intrinsics,
-               fmap, net, inp):
+               fmap, net, inp, image=None):
         """Add a keyframe at slot `counter`.
 
         pose / disp None keep the slot's current values (the frontend
         extrapolates the next keyframe into them); a scalar disp fills
-        the slot.  depth: optional full-resolution metric depth.
+        the slot.  depth: optional full-resolution metric depth; image:
+        optional (rig, H, W, 3) uint8 tensor, whose left camera gives the
+        slot's colours.
         """
         if self.counter >= self.cfg.buffer:
             raise RuntimeError(
@@ -125,6 +138,8 @@ class DepthVideo:
         st.fmaps[c] = fmap.to(st.fmaps.dtype)   # (1 | rig, h, w, 128)
         st.nets[c] = net.to(st.nets.dtype)
         st.inps[c] = inp.to(st.inps.dtype)
+        if image is not None:
+            st.colors[c] = keyframe_colors(image)
         self.counter += 1
 
     def normalize(self):

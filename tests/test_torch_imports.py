@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no module of droid_slam_tpu_torch/, not
 chip_smoke.py and not the port's tools (tools/torch_*.py) import jax,
-flax, optax, orbax or the JAX package, and entry points (`Droid`, `train`,
-the training CLI) default to the CUDA card."""
+flax, optax, orbax or the JAX package, no module of the package imports
+OpenCV or PIL when it is imported (JPEG decoding imports them inside a
+function), and entry points (`Droid`, `train`, the training CLI) default
+to the CUDA card."""
 
 import ast
 import glob
@@ -43,6 +45,20 @@ def test_no_jax_imports(path):
     for mod in _imported(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+@pytest.mark.parametrize("path", _package_files(),
+                         ids=lambda p: osp.relpath(p, ROOT))
+def test_no_module_level_image_library_imports(path):
+    """cv2 and PIL are optional: imported, if at all, inside a function."""
+    tree = ast.parse(open(path).read(), path)
+    for node in tree.body:
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""]
+                 if isinstance(node, ast.ImportFrom) else [])
+        for mod in names:
+            assert mod.split(".")[0] not in ("cv2", "PIL"), \
+                f"{path} imports {mod} at module level"
 
 
 def test_fresh_import_loads_no_jax():
