@@ -104,8 +104,9 @@ PRESETS = {
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters: the JAX package's `TrainConfig`, less the
-    fields nothing in this package reads (`fmin`, `fmax`, `noise`, `scale`
-    of the TartanAir reader and its augmentation, `world_size`)."""
+    fields nothing in this package reads (`noise`, `scale`,
+    `world_size`).  `fmin` and `fmax` bound the flow (pixels) between
+    consecutive frames of a TartanAir sample's walk."""
 
     lr: float = 2.5e-4
     steps: int = 250000
@@ -113,6 +114,8 @@ class TrainConfig:
     iters: int = 15                 # unrolled update steps
     clip: float = 2.5
     n_frames: int = 7
+    fmin: float = 8.0
+    fmax: float = 96.0
     edges: int = 24
     restart_prob: float = 0.2
     ckpt_every: int = 10000

@@ -1,13 +1,50 @@
-"""Evaluation streams by dataset layout.
+"""Training datasets by name and evaluation streams by dataset layout.
 
-`create_stream` of the JAX package's `data/factory.py`: the dataset is
-recognised by its marker files.  The training-dataset registry waits for
-the TartanAir reader, which is not ported yet.
+The JAX package's `data/factory.py`: `dataset_factory` concatenates the
+named training datasets; `create_stream` recognises an evaluation dataset
+by its marker files.
 """
 
 import os.path as osp
 
+import numpy as np
+
 from . import streams
+from .base import sample_batches
+
+
+def dataset_factory(dataset_list, **kwargs):
+    """The training datasets named in `dataset_list` ("tartan"), each
+    built with `kwargs`; one dataset alone, else their concatenation."""
+    from .tartan import TartanAir
+
+    registry = {"tartan": TartanAir}
+    datasets = [registry[name](**kwargs) for name in dataset_list]
+    if len(datasets) == 1:
+        return datasets[0]
+    return ConcatDataset(datasets)
+
+
+class ConcatDataset:
+    """Datasets indexed one after another."""
+
+    def __init__(self, datasets):
+        self.datasets = datasets
+        self.lengths = np.asarray([len(d) for d in datasets])
+        self.offsets = np.concatenate([[0], np.cumsum(self.lengths)])
+
+    def __len__(self):
+        return int(self.lengths.sum())
+
+    def __getitem__(self, index, rng=None):
+        index = index % len(self)
+        d = int(np.searchsorted(self.offsets, index, side="right") - 1)
+        return self.datasets[d].__getitem__(index - int(self.offsets[d]),
+                                            rng)
+
+    def sample_batches(self, batch_size, rng, shuffle=True):
+        """Endless stacked batches drawn with `rng`."""
+        return sample_batches(self, batch_size, rng, shuffle)
 
 
 def create_stream(datapath, **kwargs):

@@ -9,8 +9,12 @@ intersections).  The same scene generators as the JAX package's
 bilinear upsampling for the noise octaves and bilinear texture lookup
 with wrap-around coordinates (quantized to 1/32 pixel, as OpenCV's remap
 does).  `SyntheticCurriculum` mixes both families into the dataset-free
-training source.
+training source.  `write_tartanair_scene` writes a plane scene in
+TartanAir's on-disk layout.
 """
+
+import os
+import os.path as osp
 
 import numpy as np
 import torch
@@ -241,6 +245,39 @@ def render_plane_scene(n_frames=12, H=96, W=128, plane_z=2.0, seed=0,
         images=np.stack(images), poses_c2w=poses_c2w.astype(np.float32),
         depths=np.stack(depths), intrinsics=np.tile(intr, (n_frames, 1)),
     )
+
+
+# inverse of the reader's NED permutation [1, 2, 0, 4, 5, 3, 6]
+# (data/tartan.py)
+_NED_INV = [2, 0, 1, 5, 3, 4, 6]
+
+
+def write_tartanair_scene(root, scene="synth/synth/Easy/P001", n_frames=12,
+                          H=96, W=128, seed=0, depth_scale=5.0, **render_kw):
+    """Write a rendered plane scene in TartanAir's on-disk layout under
+    root/scene: image_left/*.png (through `data/image_io.write_png`),
+    depth_left/*.npy and pose_left.txt (c2w, NED order), depths and
+    translations times depth_scale.  `render_kw` goes to
+    `render_plane_scene` (focal=0.5 at W=640 is TartanAir's fx = fy =
+    320).  Returns the rendered scene."""
+    from .image_io import write_png
+
+    data = render_plane_scene(n_frames, H, W, seed=seed, **render_kw)
+    sdir = osp.join(root, scene)
+    os.makedirs(osp.join(sdir, "image_left"), exist_ok=True)
+    os.makedirs(osp.join(sdir, "depth_left"), exist_ok=True)
+
+    for n in range(n_frames):
+        write_png(osp.join(sdir, "image_left", f"{n:06d}_left.png"),
+                  data["images"][n])
+        np.save(osp.join(sdir, "depth_left", f"{n:06d}_left_depth.npy"),
+                data["depths"][n] * depth_scale)
+
+    poses = data["poses_c2w"].copy()
+    poses[:, :3] *= depth_scale
+    np.savetxt(osp.join(sdir, "pose_left.txt"), poses[:, _NED_INV],
+               delimiter=" ")
+    return data
 
 
 class SyntheticCurriculum:

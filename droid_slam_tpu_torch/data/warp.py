@@ -8,6 +8,10 @@ installed:
     resize_linear(img, H, W)   `cv2.resize(img, (W, H))`, INTER_LINEAR:
                                half-pixel centres, no antialiasing, edge
                                samples clamped
+    resize_nearest(img, H, W)  `cv2.resize(img, (W, H),
+                               interpolation=cv2.INTER_NEAREST)`: source
+                               index floor(dst / (dst_size / src_size)),
+                               clamped
     undistort_rectify_map(K, D, R, P, (H, W))
                                `cv2.initUndistortRectifyMap` for the
                                radial-tangential model k1 k2 p1 p2 [k3
@@ -59,6 +63,22 @@ def resize_linear(img, height, width):
                         mode="bilinear", align_corners=False,
                         antialias=False)
     return _to_dtype(out[0].permute(1, 2, 0), squeeze, np.asarray(img).dtype)
+
+
+def resize_nearest(img, height, width):
+    """Nearest-neighbour resize of an (H, W[, C]) array to (height,
+    width), any dtype, values copied unchanged."""
+    a = np.asarray(img)
+    H, W = a.shape[:2]
+
+    # OpenCV's resizeNN: x * (1 / (dst / src)) in double, floored
+    def src_index(n_dst, n_src):
+        inv = 1.0 / (n_dst / n_src)
+        idx = np.floor(np.arange(n_dst, dtype=np.float64) * inv)
+        return np.minimum(idx.astype(np.int64), n_src - 1)
+
+    return np.ascontiguousarray(
+        a[src_index(height, H)[:, None], src_index(width, W)[None, :]])
 
 
 def _rectify_map64(K, D, R, P, size):

@@ -62,8 +62,8 @@ def build_parser():
                         "(ETH3D/TartanAir/TUM/EuRoC/KITTI, "
                         "data/factory.py:create_stream)")
     p.add_argument("--weights", default=None,
-                   help="network weights (.npz); seeded random weights "
-                        "without it")
+                   help="network weights: an .npz, or the reference's "
+                        "droid.pth; seeded random weights without it")
     p.add_argument("--synthetic", type=int, default=0,
                    help="run on N synthetic frames instead of images")
     p.add_argument("--preset", default="demo",

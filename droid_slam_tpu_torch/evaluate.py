@@ -5,6 +5,7 @@
         [--stereo]
     python -m droid_slam_tpu_torch.evaluate eth3d --datapath SEQ
     python -m droid_slam_tpu_torch.evaluate tartanair --datapath SCENE
+    python -m droid_slam_tpu_torch.evaluate synthetic [--weights W | --ckpt C]
 
 The protocols of the JAX package's `evaluation_scripts/` (test_tum.py,
 test_euroc.py, test_eth3d.py, validate_tartanair.py):
@@ -19,9 +20,19 @@ test_euroc.py, test_eth3d.py, validate_tartanair.py):
   tartanair  384x512 frames, Sim(3)-aligned ATE, translational RPE and
              the KITTI segment-drift pair on the aligned estimate
 
+and the dataset-free accuracy harness of `eval_synthetic.py`:
+
+  synthetic  rendered box (or plane) scenes with exact ground truth, seeds
+             apart from the training curriculum's; Sim(3)-aligned ATE per
+             scene, then the median and the mean over the finite ones;
+             `--compare` also runs the seeded initialisation on the same
+             scenes and prints the ratio
+
 `--image_size`, `--buffer`, `--warmup` and `--filter_thresh` override the
-protocol for short dry runs.  Runs on the CUDA card unless --device names
-another torch device.
+protocol for short dry runs.  `--weights` takes an .npz or the reference's
+droid.pth; `synthetic` also takes `--ckpt`, a checkpoint that training
+wrote.  Runs on the CUDA card unless --device names another torch
+device.
 """
 
 import argparse
@@ -32,9 +43,7 @@ import sys
 
 import numpy as np
 
-# TartanAir poses are NED: this permutation of [t, q] gives the camera
-# frame the trajectories are estimated in
-NED_PERMUTATION = [1, 2, 0, 4, 5, 3, 6]
+from .data.tartan import NED_PERMUTATION, TartanAir
 
 
 def _overrides(args):
@@ -168,7 +177,7 @@ def tartan_frames(scene_dir, stride=1, image_size=(384, 512)):
     from .data.warp import resize_linear
 
     H, W = image_size
-    intr0 = np.array([320.0, 320.0, 320.0, 240.0])
+    intr0 = TartanAir.calib_read()
     images = sorted(glob.glob(osp.join(scene_dir, "image_left/*.png")))
     for t, path in enumerate(images[::stride]):
         img = imread_rgb(path)
@@ -201,11 +210,85 @@ def eval_tartanair(args):
     return ate
 
 
+def eval_synthetic(args):
+    from .config import SLAMConfig
+    from .data.synthetic import render_box_scene, render_plane_scene
+    from .geom.align import ate_rmse
+    from .runtime.slam import Droid, resolve_device
+
+    H, W = args.size
+    device = resolve_device(args.device)
+    ckpt = None
+    if args.ckpt:
+        import torch
+
+        ckpt = torch.load(args.ckpt, map_location="cpu", weights_only=True)
+        print(f"loaded checkpoint at step {ckpt['step']}")
+
+    def run_scene(seed, learned, tag=""):
+        render = (render_box_scene if args.scene == "box"
+                  else render_plane_scene)
+        scene = render(args.n_frames, H, W, seed=seed,
+                       motion_scale=args.motion)
+        cfg = SLAMConfig(
+            image_size=(H, W), compute_dtype=args.dtype,
+            buffer=args.n_frames + 20,   # keyframes + filler batch
+            filler_batch=8, warmup=6, filter_thresh=0.0,
+            keyframe_thresh=0.01, frontend_window=10, frontend_pose_cap=32,
+            frontend_depth_cap=32, frontend_thresh=64.0,
+            backend_thresh=args.backend_thresh,
+            backend_nms=args.backend_nms,
+        )
+        droid = Droid(cfg, weights_path=args.weights if learned else None,
+                      device=device, seed=0)
+        if learned and ckpt is not None:
+            droid.net.load_state_dict(ckpt["model"], strict=True)
+
+        intr = scene["intrinsics"][0]
+        for t in range(args.n_frames):
+            droid.track(t, scene["images"][t], intrinsics=intr)
+        n_kf = droid.video.counter
+        traj = droid.terminate(
+            ((t, scene["images"][t], intr) for t in range(args.n_frames)),
+            backend_steps=tuple(args.backend_steps))
+
+        gt = scene["poses_c2w"]
+        ate = ate_rmse(gt[:, :3], traj[:, :3], correct_scale=True)
+        span = np.linalg.norm(gt[:, :3] - gt[:1, :3], axis=1).max()
+        print(f"seed {seed}{tag}: ATE = {ate:.4f} m (trajectory span "
+              f"{span:.3f} m, {n_kf} keyframes)")
+        return ate
+
+    def agg(vals, name):
+        """The median over the finite runs (the headline) and their mean,
+        with the count of diverged (non-finite) runs."""
+        v = np.asarray(vals, np.float64)
+        fin = v[np.isfinite(v)]
+        n_div = int(np.sum(~np.isfinite(v)))
+        mean = float(fin.mean()) if len(fin) else float("inf")
+        med = float(np.median(fin)) if len(fin) else float("inf")
+        print(f"{name}: median {med:.4f} m, mean(finite) {mean:.4f} m"
+              + (f", {n_div} diverged" if n_div else ""))
+        return med
+
+    learned = args.weights is not None or ckpt is not None
+    results = [run_scene(s, learned) for s in args.seeds]
+    med_l = agg(results, f"learned ATE over {len(results)} scenes")
+    if args.compare:
+        base = [run_scene(s, False, tag=" [random-init]")
+                for s in args.seeds]
+        med_r = agg(base, "random-init ATE")
+        print(f"learned/random median ratio {med_l / med_r:.3f} "
+              f"(improvement {med_r / med_l:.2f}x)")
+    return med_l
+
+
 def build_parser():
     common = argparse.ArgumentParser(add_help=False)
     common.add_argument("--datapath", required=True)
     common.add_argument("--weights", default=None,
-                        help="network weights (.npz); seeded random "
+                        help="network weights: an .npz, or the "
+                             "reference's droid.pth; seeded random "
                              "weights without it")
     common.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
@@ -232,13 +315,43 @@ def build_parser():
     sub.choices["eth3d"].add_argument(
         "--output", default="eth3d_trajectory.txt",
         help="trajectory file written when there is no groundtruth.txt")
+
+    s = sub.add_parser("synthetic")
+    s.add_argument("--weights", default=None,
+                   help="network weights: an .npz, or the reference's "
+                        "droid.pth")
+    s.add_argument("--ckpt", default=None,
+                   help="a training checkpoint (step_*.pt) to score")
+    s.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card)")
+    s.add_argument("--n_frames", type=int, default=16)
+    s.add_argument("--size", type=int, nargs=2, default=(64, 96),
+                   metavar=("H", "W"))
+    s.add_argument("--seeds", type=int, nargs="+", default=[11, 12])
+    s.add_argument("--motion", type=float, default=0.08)
+    s.add_argument("--scene", default="box", choices=["box", "plane"],
+                   help="held-out scene family (seeds disjoint from the "
+                        "training curriculum's)")
+    s.add_argument("--backend_steps", type=int, nargs=2, default=(3, 3))
+    s.add_argument("--dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"],
+                   help="network compute dtype")
+    s.add_argument("--backend_thresh", type=float, default=64.0,
+                   help="backend proximity threshold (small synthetic "
+                        "scenes need a looser graph than the 240x320 "
+                        "default)")
+    s.add_argument("--backend_nms", type=int, default=1)
+    s.add_argument("--compare", action="store_true",
+                   help="also run the seeded initialisation on the same "
+                        "scenes and print the learned/random ATE ratio")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     run = dict(tum=eval_tum, euroc=eval_euroc, eth3d=eval_eth3d,
-               tartanair=eval_tartanair)[args.benchmark]
+               tartanair=eval_tartanair,
+               synthetic=eval_synthetic)[args.benchmark]
     run(args)
     return 0
 

@@ -13,6 +13,7 @@ pure-damping row and a zero update.
 import torch
 
 from ..lie import se3
+from ..ops import scatter
 from . import projective
 from .chol import block_solve, schur_solve
 
@@ -34,7 +35,7 @@ def _scatter_mat(A, ii, jj, n, m):
     v = (ii >= 0) & (jj >= 0) & (ii < n) & (jj < m)
     idx = torch.where(v, ii * m + jj, n * m)        # n*m = drop bucket
     out = A.new_zeros((A.shape[0], n * m + 1) + A.shape[2:])
-    out = out.index_add(1, idx, A)[:, :-1]
+    out = scatter.index_add_(out, 1, idx, A)[:, :-1]
     return out.reshape((A.shape[0], n, m) + A.shape[2:])
 
 
@@ -42,7 +43,7 @@ def _scatter_vec(b, ii, n):
     v = (ii >= 0) & (ii < n)
     idx = torch.where(v, ii, n)
     out = b.new_zeros((b.shape[0], n + 1) + b.shape[2:])
-    return out.index_add(1, idx, b)[:, :-1]
+    return scatter.index_add_(out, 1, idx, b)[:, :-1]
 
 
 def _linearize(target, weight, poses, disps, intrinsics, ii, jj):

@@ -8,6 +8,12 @@ the delta/weight heads unfused (`delta_0`, `weight_0`, `delta_2`,
 `weight_2`; the JAX package only fuses their kernels at run time), as the
 torch modules do, so parameters and gradients of those heads map back
 one to one.
+
+The reference's published `droid.pth` is read too: `convert_state_dict`
+maps its keys onto the same flax tree (the DDP `module.` prefix
+stripped, the 3-channel delta and weight heads truncated to 2, as the
+original `droid.py:45-58` does at load time), so there is one key map,
+`params_from_flax`, from either file to the torch modules.
 """
 
 import numpy as np
@@ -56,11 +62,105 @@ def params_from_flax(tree):
     return sd
 
 
+def to_numpy_state(state_dict):
+    """A torch state_dict as {name: np.ndarray}, the DDP `module.` prefix
+    stripped from every name."""
+    out = {}
+    for k, v in state_dict.items():
+        if hasattr(v, "detach"):
+            v = v.detach().cpu().numpy()
+        out[k.replace("module.", "")] = np.asarray(v)
+    return out
+
+
+def _conv(sd, tname):
+    """A torch conv's weight (OIHW) and bias -> {"kernel": HWIO, "bias"}."""
+    w = sd[f"{tname}.weight"]
+    entry = {"kernel": np.transpose(w, (2, 3, 1, 0))}
+    if f"{tname}.bias" in sd:
+        entry["bias"] = sd[f"{tname}.bias"]
+    return entry
+
+
+def _encoder(sd, prefix):
+    params = {
+        "conv1": _conv(sd, f"{prefix}.conv1"),
+        "conv2": _conv(sd, f"{prefix}.conv2"),
+    }
+    for stage in (1, 2, 3):
+        for blk in (0, 1):
+            bp = f"{prefix}.layer{stage}.{blk}"
+            entry = {
+                "conv1": _conv(sd, f"{bp}.conv1"),
+                "conv2": _conv(sd, f"{bp}.conv2"),
+            }
+            if f"{bp}.downsample.0.weight" in sd:
+                entry["downsample"] = _conv(sd, f"{bp}.downsample.0")
+            params[f"layer{stage}_{blk}"] = entry
+    return params
+
+
+def _truncate_head(entry, out_ch=2):
+    """Keep the first `out_ch` output channels of a head (the published
+    heads have 3, the model uses 2)."""
+    entry = dict(entry)
+    entry["kernel"] = entry["kernel"][..., :out_ch]
+    if "bias" in entry:
+        entry["bias"] = entry["bias"][:out_ch]
+    return entry
+
+
+def convert_state_dict(sd):
+    """The reference's state_dict (numpy values, no `module.` prefix) ->
+    the flax-layout param tree of DroidNet."""
+    update = {
+        "corr_encoder_0": _conv(sd, "update.corr_encoder.0"),
+        "corr_encoder_2": _conv(sd, "update.corr_encoder.2"),
+        "flow_encoder_0": _conv(sd, "update.flow_encoder.0"),
+        "flow_encoder_2": _conv(sd, "update.flow_encoder.2"),
+        "weight_0": _conv(sd, "update.weight.0"),
+        "weight_2": _truncate_head(_conv(sd, "update.weight.2")),
+        "delta_0": _conv(sd, "update.delta.0"),
+        "delta_2": _truncate_head(_conv(sd, "update.delta.2")),
+        "gru": {
+            "convz": _conv(sd, "update.gru.convz"),
+            "convr": _conv(sd, "update.gru.convr"),
+            "convq": _conv(sd, "update.gru.convq"),
+            "w": _conv(sd, "update.gru.w"),
+            "convz_glo": _conv(sd, "update.gru.convz_glo"),
+            "convr_glo": _conv(sd, "update.gru.convr_glo"),
+            "convq_glo": _conv(sd, "update.gru.convq_glo"),
+        },
+        "agg": {
+            "conv1": _conv(sd, "update.agg.conv1"),
+            "conv2": _conv(sd, "update.agg.conv2"),
+            "eta": _conv(sd, "update.agg.eta.0"),
+            "upmask": _conv(sd, "update.agg.upmask.0"),
+        },
+    }
+    return {"params": {"fnet": _encoder(sd, "fnet"),
+                       "cnet": _encoder(sd, "cnet"),
+                       "update": update}}
+
+
+def load_reference_weights(path):
+    """The reference's `droid.pth` as a flax-layout param tree."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return convert_state_dict(to_numpy_state(sd))
+
+
 def load_weights(net, path):
-    """Load an npz checkpoint into `net` (a DroidNet); every array must be
-    consumed and every module parameter provided."""
-    net.load_state_dict(params_from_flax(load_npz_weights(path)),
-                        strict=True)
+    """Load a checkpoint into `net` (a DroidNet), read by extension: an
+    `.npz` of this package or the JAX package, or the reference's `.pth`.
+    Every array must be consumed and every module parameter provided."""
+    path = str(path)
+    if path.endswith(".npz"):
+        tree = load_npz_weights(path)
+    elif path.endswith(".pth"):
+        tree = load_reference_weights(path)
+    else:
+        raise ValueError(f"{path}: weights must be an .npz or a .pth file")
+    net.load_state_dict(params_from_flax(tree), strict=True)
     return net
 
 

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops import scatter
 from .gru import ConvGRU
 from .layers import conv, grad_clip, to_nchw, to_nhwc
 
@@ -28,7 +29,7 @@ def segment_mean(x, ix, nseg):
     idx = ix[keep]
     tot = torch.zeros((nseg,) + x.shape[1:], device=x.device,
                       dtype=torch.float32)
-    tot.index_add_(0, idx, x[keep].float())
+    scatter.index_add_(tot, 0, idx, x[keep].float())
     cnt = torch.bincount(idx, minlength=nseg).clamp(min=1).float()
     return (tot / cnt.reshape((-1,) + (1,) * (x.ndim - 1))).to(x.dtype)
 

@@ -3,8 +3,9 @@
 Damped Gauss-Newton with the depth unknowns eliminated by Schur
 complement and a dense Cholesky pose solve, all in float32 on the
 tensors' device.  Index plumbing (edge → pose slot, edge → depth frame,
-depth frame → buffer row) is `index_add_`/gather, where the JAX package
-contracts 0/1 selector matrices on the TPU's matrix unit.
+depth frame → buffer row) is gather and `ops/scatter.index_add_` (a sum
+order that repeats on the card), where the JAX package contracts 0/1
+selector matrices on the TPU's matrix unit.
 
 Semantics kept from the JAX package (and the reference kernel):
   * weights scaled by 0.001 and zeroed where the transformed depth is
@@ -29,6 +30,7 @@ import torch
 
 from ..geom import projective
 from ..lie import se3
+from . import scatter
 
 ALPHA = 0.05          # RGB-D prior strength
 W_SCALE = 0.001       # residual weight scale
@@ -149,20 +151,22 @@ def ba(poses, disps, disps_sens, intrinsics, target, weight, eta,
 
         # pose system, (P+1)² blocks with a dump row/col for fixed poses
         H4 = torch.zeros(((P + 1) * (P + 1), 6, 6), device=dev)
-        H4.index_add_(0, blk_idx,
-                      Hblk.permute(0, 1, 3, 2, 4).reshape(E * 4, 6, 6))
+        scatter.index_add_(H4, 0, blk_idx,
+                           Hblk.permute(0, 1, 3, 2, 4).reshape(E * 4, 6, 6))
         vd = torch.zeros((P + 1, 6), device=dev)
-        vd.index_add_(0, pe.reshape(-1), v.reshape(E * 2, 6))
+        scatter.index_add_(vd, 0, pe.reshape(-1), v.reshape(E * 2, 6))
 
         if not motion_only:
             dk = disps[kx].reshape(K, HW)
-            C = torch.zeros((K + 1, HW), device=dev).index_add_(0, ks, Cii)
-            w = torch.zeros((K + 1, HW), device=dev).index_add_(0, ks, wi)
+            C = scatter.index_add_(torch.zeros((K + 1, HW), device=dev),
+                                   0, ks, Cii)
+            w = scatter.index_add_(torch.zeros((K + 1, HW), device=dev),
+                                   0, ks, wi)
             C = C[:K] + m_sens * ALPHA + (1.0 - m_sens) * eta_k
             w = w[:K] - m_sens * ALPHA * (dk - dsk)
             Q = torch.where(kmask[:, None], 1.0 / C, torch.zeros_like(C))
             E_self = torch.zeros((K + 1, 6, HW), device=dev)
-            E_self = E_self.index_add_(0, ks, Eii)[:K]
+            E_self = scatter.index_add_(E_self, 0, ks, Eii)[:K]
 
             # coupling terms: K self terms, then one Eij term per edge
             B = torch.cat([E_self, Eij], dim=0)             # (T, 6, HW)
@@ -178,10 +182,10 @@ def ba(poses, disps, disps_sens, intrinsics, target, weight, eta,
             for lo in range(0, pa.shape[0], chunk):
                 a, b = pa[lo:lo + chunk], pb[lo:lo + chunk]
                 S_ab = torch.bmm(BQ[a], B[b].transpose(1, 2))
-                H4.index_add_(0, tp[a] * (P + 1) + tp[b], -S_ab)
+                scatter.index_add_(H4, 0, tp[a] * (P + 1) + tp[b], -S_ab)
             vs = torch.einsum("tah,th->ta", B, Q[tkq] * w[tkq])
             vs = torch.where(live[:, None], vs, torch.zeros_like(vs))
-            vd.index_add_(0, tp, -vs)
+            scatter.index_add_(vd, 0, tp, -vs)
 
         # dense damped pose solve
         H = H4.reshape(P + 1, P + 1, 6, 6)[:P, :P]
@@ -201,13 +205,13 @@ def ba(poses, disps, disps_sens, intrinsics, target, weight, eta,
         if not motion_only:
             dx_pad = torch.cat([dx, torch.zeros((1, 6), device=dev)])
             Edx = torch.einsum("tah,ta->th", B, dx_pad[tp])
-            Edx = torch.zeros((K + 1, HW), device=dev).index_add_(
-                0, tk, Edx)[:K]
+            Edx = scatter.index_add_(torch.zeros((K + 1, HW), device=dev),
+                                     0, tk, Edx)[:K]
             dz = Q * (w - Edx)
             dz = torch.where(kmask[:, None], dz, torch.zeros_like(dz))
             dz_full = torch.zeros((buf + 1, HW), device=dev)
-            dz_full.index_add_(0, torch.where(kmask, kx,
-                                              torch.full_like(kx, buf)), dz)
+            scatter.index_add_(dz_full, 0, torch.where(
+                kmask, kx, torch.full_like(kx, buf)), dz)
             disps = torch.clamp(
                 disps + dz_full[:buf].reshape(buf, ht, wd), min=0.001)
 

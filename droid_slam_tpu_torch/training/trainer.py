@@ -77,8 +77,9 @@ def train(cfg: TrainConfig, dataset, device=None, max_steps=None,
 
     Edge lists are padded to a fixed capacity.  Random-restart chains
     accumulate gradients and step the optimizer once.  `resume` continues
-    from a checkpoint; `init_npz` warm-starts the parameters from an
-    exported weights file with a fresh optimizer, `start_step` labelling
+    from a checkpoint; `init_npz` warm-starts the parameters from a
+    weights file (an .npz, or the reference's droid.pth) with a fresh
+    optimizer, `start_step` labelling
     how far the source run had come.  Returns the final `TrainState`.
     """
     device = resolve_device(device)
@@ -125,7 +126,7 @@ def train(cfg: TrainConfig, dataset, device=None, max_steps=None,
             if rng.random() < 0.5:
                 ii, jj = build_frame_graph(
                     batch_np["poses"], batch_np["disps"],
-                    batch_np["intrinsics"], num=cfg.edges)
+                    batch_np["intrinsics"], num=cfg.edges, device=device)
             else:
                 ii, jj = temporal_graph(N, r=2)
             batch = make_batch(batch_np, ii, jj, cap, device)

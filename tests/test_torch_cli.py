@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from droid_slam_tpu_torch import demo, evaluate
-from torch_port_common import FIX, ROOT, WEIGHTS, tiny_seq
+from torch_port_common import FIX, ROOT, WEIGHTS, tiny_seq, write_dataset
 
 TUM = f"{ROOT}/tests/fixtures/tum_tiny"
 DEMO_ARGS = ["--imagedir", FIX, "--calib", f"{FIX}/calib.txt",
@@ -77,46 +77,6 @@ def test_evaluate_tum_prints_finite_ate(one_thread, capsys):
     assert np.isfinite(float(m.group(1))) and int(m.group(2)) == 10
 
 
-def _write_dataset(root, protocol, n=8, H=96, W=128):
-    """A tiny dataset in `protocol`'s layout from the port's box scene
-    (PNG through the port's encoder); returns the extra CLI arguments."""
-    from droid_slam_tpu_torch.data.image_io import write_png
-    from droid_slam_tpu_torch.data.synthetic import render_box_scene
-
-    sc = render_box_scene(n, H, W, seed=6, motion_scale=0.12)
-    ts = 100.0 + 0.05 * np.arange(n)
-    gt = np.column_stack([ts, sc["poses_c2w"]])
-    if protocol == "eth3d":
-        (root / "rgb").mkdir()
-        (root / "depth").mkdir()
-        with open(root / "rgb.txt", "w") as fr, \
-                open(root / "depth.txt", "w") as fd:
-            for k, t in enumerate(ts):
-                write_png(str(root / f"rgb/{t:.6f}.png"), sc["images"][k])
-                write_png(str(root / f"depth/{t:.6f}.png"),
-                          (sc["depths"][k] * 5000).astype(np.uint16))
-                fr.write(f"{t:.6f} rgb/{t:.6f}.png\n")
-                fd.write(f"{t:.6f} depth/{t:.6f}.png\n")
-        np.savetxt(root / "calibration.txt", sc["intrinsics"][0])
-        np.savetxt(root / "groundtruth.txt", gt)
-        return ["--stride", "1"]
-    if protocol == "euroc":
-        for cam in ("cam0", "cam1"):
-            d = root / "mav0" / cam / "data"
-            d.mkdir(parents=True)
-            for k, t in enumerate(ts):
-                write_png(str(d / f"{int(t * 1e9)}.png"), sc["images"][k])
-        np.savetxt(root / "gt.txt", gt, delimiter=" ")
-        return ["--gt", str(root / "gt.txt"), "--stereo", "--stride", "1",
-                "--image_size", str(H), str(W)]
-    (root / "image_left").mkdir()
-    for k in range(n):
-        write_png(str(root / f"image_left/{k:06d}.png"), sc["images"][k])
-    ned = sc["poses_c2w"][:, [2, 0, 1, 5, 3, 4, 6]]   # inverse permutation
-    np.savetxt(root / "pose_left.txt", ned, delimiter=" ")
-    return ["--image_size", str(H), str(W)]
-
-
 @pytest.mark.parametrize("protocol", ["euroc", "eth3d", "tartanair"])
 def test_evaluate_other_protocols_print_finite_errors(tmp_path, one_thread,
                                                       capsys, protocol):
@@ -124,7 +84,7 @@ def test_evaluate_other_protocols_print_finite_errors(tmp_path, one_thread,
     their layouts: each runs its stream, tracks, terminates and prints
     finite errors over every frame (the KITTI drift pair is NaN: the
     path is shorter than its shortest segment, 5 m)."""
-    args = _write_dataset(tmp_path, protocol)
+    args = write_dataset(tmp_path, protocol)
     evaluate.main([protocol, "--datapath", str(tmp_path), "--weights",
                    WEIGHTS, "--device", "cpu", "--buffer", "32",
                    "--warmup", "5", "--filter_thresh", "0",

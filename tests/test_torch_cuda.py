@@ -355,3 +355,31 @@ def test_accumulate_step_cuda_matches_cpu(impl, monkeypatch):
     print(f"{impl}: loss cpu {out['cpu'][0]} cuda {out['cuda'][0]}, "
           f"gradient tree relative difference {rel}")
     assert rel < 5e-3, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [0, 1])
+def test_scatter_repeats_bit_for_bit(dim):
+    """`ops/scatter.index_add_` over a collision-heavy index on the card:
+    two calls on the same inputs are bit-equal (where `index_add_`'s float
+    atomics are not, ROADMAP C7), and agree with `index_add_` to f32
+    rounding of the sums (atol 1e-3 on sums of ~3000 unit normals)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from droid_slam_tpu_torch.ops import scatter
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    idx = torch.randint(0, 64, (200000,), device="cuda", generator=g)
+    src = torch.randn((200000, 36), device="cuda", generator=g)
+    if dim == 1:
+        src = src.T.contiguous()
+
+    def run():
+        shape = (64, 36) if dim == 0 else (36, 64)
+        return scatter.index_add_(torch.zeros(shape, device="cuda"), dim,
+                                  idx, src)
+
+    a, b = run(), run()
+    assert torch.equal(a, b)
+    want = torch.zeros_like(a).index_add_(dim, idx, src)
+    torch.testing.assert_close(a, want, atol=1e-3, rtol=1e-5)

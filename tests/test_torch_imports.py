@@ -101,9 +101,9 @@ def _run_cli(args):
 
 
 def test_train_cli_parses_without_jax():
-    """`python -m droid_slam_tpu_torch.train`: --help works, a run without
-    --synthetic is refused (no other data source is ported), and neither
-    loads any forbidden module."""
+    """`python -m droid_slam_tpu_torch.train`: --help works, a run with
+    neither --datapath nor --synthetic is refused, and neither loads any
+    forbidden module."""
     r = _run_cli(["--help"])
     assert r.returncode == 0 and "--synthetic" in r.stdout, r.stderr[-2000:]
     r = _run_cli(["--steps", "1"])
