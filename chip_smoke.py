@@ -31,6 +31,35 @@
    of the path length), the alignment's scale, the path length, lookup
    launches and peak device memory:
    a. mono main path: `Droid(SLAMConfig())`, 80 frames at 240×320;
+   a2. host frontend path: the same cell under `SLAMConfig(fused=False)`
+      (the host-driven factor graph drives every keyframe step), twice,
+      each after `Droid.prewarm()`; raises unless the two trajectories
+      are bit-equal.  Prints the keyframes beside the fused main path's,
+      the host-clock phase timers of the second run's tracking (warm ms
+      per phase; the card is not synchronized, so a phase is launch and
+      host-read time), and holds the lookup kernel against its plain
+      version on that run's frontend edges (as in d).  Then serves that
+      run's map with the live viewer on an ephemeral port of 127.0.0.1,
+      fetches `/` and `/map.bin`, and raises unless the map parses, has a
+      camera per keyframe and equals `map_snapshot`.  Last, in a fresh
+      process with an empty build directory, `prewarm()` and the same
+      stream: raises unless `prewarm` built and loaded every kernel
+      source and no build ran after it returned.
+   a3. distributed backend path: the main path's state, copied just
+      before `terminate`, finished by the single-device backend (global
+      BA passes of 7 and 12 sweeps), then twice by
+      `Backend(distributed=True)` over `ba_mesh(devices=[cuda:0,
+      cuda:0])`, two shards on the one card; then the first sharded BA
+      call's inputs through both solvers once.  Raises unless all 19
+      sweeps of each run went through the sharded solver, the two
+      distributed runs are bit-equal, the one-call solvers agree within
+      the CPU test's bounds (poses 2e-4 / 1e-3, disparities 2e-3 /
+      2e-2, every pixel), and after the sweeps the poses are within 2e-3
+      of the single-device ones and the median disparity within 2e-3.
+      Prints the pose and disparity differences (quantiles, the pixels
+      outside 2e-3 / 2e-2, the confidence and damping of the ten that
+      drift most beside the medians), the seconds and the lookup
+      launches of each.
    b. determinism (ROADMAP C7): the mono path three times each, in
       turns, with the row sums of dense BA and GraphAgg in a sorted order
       (ops/scatter.py, as the port runs) and with `index_add_`'s float
@@ -109,7 +138,26 @@
    with the shipped weights, whose median ATE must be below the seeded
    initialisation's, and with the checkpoint the tartan training path
    wrote, whose errors must be finite.
-7. Prints the card's name and power limit, one {"kernels": [...]} line,
+7. data-parallel training path: `python -m torch.distributed.run
+   --nproc_per_node 2 -m droid_slam_tpu_torch.train --synthetic --batch 2
+   --steps 2 --iters 4` as a subprocess, two ranks sharing the card (so
+   gloo), against the same command as one process; `TrainConfig()` width,
+   the unrolled iterations cut to 4 so that both ranks fit the card.
+   Prints the backend, world size, seconds per step, peak memory and
+   B2/B4 launches of every rank and of the single process, the losses,
+   the step-1 gradients' relative L2 difference (AdamW's first moment in
+   the step-1 checkpoints) and the parameter updates' after each step.
+   Then the exact check: two gloo ranks on the card take the CLI's step
+   1 on a sample each, in turns, and all-reduce, against the two
+   samples' gradients summed in one fresh process with no process group
+   (cuDNN deterministic on every side); it also reads the floor (that
+   sum twice), what splitting the batch moves (the batch of two in one
+   chain) and two planted faults (an average, a dropped rank).  Raises unless the losses are finite, the
+   reduced gradient is within 1e-6 relative L2 of the in-process sum on
+   both ranks, the CLI's step-1 losses agree within 2e-3 relative and
+   its step-1 gradients within 0.1, every rank launched B2 and B4, and
+   B2/B4 match their plain versions on rank 0's first batch.
+8. Prints the card's name and power limit, one {"kernels": [...]} line,
    and as the last line {"ok": true, "device": {...}}.
 
 Trajectory errors come from the package's own `geom/align.py`.  Any
@@ -153,6 +201,10 @@ TARTAN_SCENES = 2
 TARTAN_FRAMES = 32
 # held-out scenes of the synthetic accuracy harness
 SYNTH_SEEDS = ["11", "12", "13", "14"]
+# the data-parallel phase: unrolled iterations cut so that two ranks at
+# TrainConfig() width share the one card comfortably; rendered scenes
+DP_ITERS = 4
+DP_SCENES = 3
 
 
 def card_line():
@@ -557,22 +609,27 @@ def trajectory_error(label, traj, poses_c2w):
 
 
 def serving_phase(corr, label, cfg, scene, with_depth=False,
-                  weights=WEIGHTS):
+                  weights=WEIGHTS, before_stream=None, before_terminate=None):
     """`Droid(cfg)` with the shipped weights tracks `scene` frame by frame
     (with its exact depths when `with_depth`) and terminates (global BA +
     trajectory fill of the left or only camera); launch counts are reset
-    just before and read just after.  Raises unless the trajectory is
-    finite with unit quaternions, the frontend initialized, the lookup
-    kernel launched, and the ATE after a Sim(3) alignment is under 10% of
-    the path.  Returns the phase's readings, the Droid, and under stereo
-    the frontend's active edges (ii, jj) at the frame with the most
-    ii == jj edges, and the trajectory."""
+    just before and read just after.  `before_stream(droid)` and
+    `before_terminate(droid)` run, if given, just before the first frame
+    and just before `terminate`, outside the timed spans; they launch no
+    kernel.  Raises unless
+    the trajectory is finite with unit quaternions, the frontend
+    initialized, the lookup kernel launched, and the ATE after a Sim(3)
+    alignment is under 10% of the path.  Returns the phase's readings,
+    the Droid, and under stereo the frontend's active edges (ii, jj) at
+    the frame with the most ii == jj edges, and the trajectory."""
     from droid_slam_tpu_torch.runtime.slam import Droid
 
     images, intr = scene["images"], scene["intrinsics"][0]
     n_frames = len(images)
     depth = scene["depths"] if with_depth else [None] * n_frames
     droid = Droid(cfg, weights_path=weights)
+    if before_stream is not None:
+        before_stream(droid)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     corr.reset_launch_counts()
@@ -595,6 +652,8 @@ def serving_phase(corr, label, cfg, scene, with_depth=False,
     if cfg.upsample:
         up_written_track = int((st.disps_up[:n_kf] != 0).flatten(1).any(1)
                                .sum())
+    if before_terminate is not None:
+        before_terminate(droid)
     t = time.time()
     traj = droid.terminate(
         ((float(k), images[k], intr) for k in range(n_frames)))
@@ -641,13 +700,15 @@ def serving_phase(corr, label, cfg, scene, with_depth=False,
     return out, droid, stereo_edges, traj
 
 
-def block_kernel_check(corr, cfg, droid, ii, jj):
+def block_kernel_check(corr, cfg, droid, ii, jj, edge_chunk=None):
     """The serving lookup kernel at the shapes of a path that correlates
     on the fly, on the run's own features and poses: the volumes of the
     frontend edges (ii, jj), ii == jj ones read from the right camera, in
-    the keyframe step's blocks of query pixels.  Holds the kernel against
-    its plain version block by block and the path's `edge_correlation`
-    against the kernel's taps; times one block."""
+    the blocks of query pixels of the keyframe step (whose edges per
+    update pass are `edge_chunk`, the fused step's active capacity by
+    default).  Holds the kernel against its plain version block by block
+    and the path's `edge_correlation` against the kernel's taps; times
+    one block."""
     from droid_slam_tpu_torch.geom import projective
     from droid_slam_tpu_torch.runtime.factor_graph import (
         corr_pixel_chunk, edge_correlation, target_fmaps)
@@ -662,7 +723,8 @@ def block_kernel_check(corr, cfg, droid, ii, jj):
     coords1 = projective.projective_transform(
         st.poses[None], st.disps[None], st.intrinsics[None], ii, jj)[0][0]
     # the keyframe step's blocking (corr.alt_lookup_pyramid's rule)
-    chunk = corr_pixel_chunk(cfg, fused_caps(cfg)[5], HW)
+    chunk = corr_pixel_chunk(
+        cfg, fused_caps(cfg)[5] if edge_chunk is None else edge_chunk, HW)
     step = chunk if (HW > 1024 and 0 < chunk < HW) else HW
     path = edge_correlation(st.fmaps, ii, jj, coords1, chunk)
     path = path.reshape(E, HW, -1)
@@ -701,9 +763,317 @@ def main_path_phase(corr, n_frames):
     scene = render_box_scene(n_frames, H, W, seed=1, motion_scale=0.12)
     print(f"scene: {n_frames} frames {H}x{W} rendered in "
           f"{time.time() - t:.1f} s", flush=True)
-    out, _, _, traj = serving_phase(corr, "main path", cfg, scene)
+    snap = {}
+
+    def keep_state(droid):
+        snap.update(state={f: t.clone() for f, t in
+                           vars(droid.video.state).items()},
+                    counter=droid.video.counter, net=droid.net, cfg=cfg)
+
+    out, _, _, traj = serving_phase(corr, "main path", cfg, scene,
+                                    before_terminate=keep_state)
     print("main path: " + json.dumps(out), flush=True)
-    return out, scene, traj
+    return out, scene, traj, snap
+
+
+def prewarm_child(frames_npz, out_json):
+    """In a fresh process, whose kernel libraries are neither loaded nor
+    built (an empty build directory): `Droid(SLAMConfig(fused=False))`,
+    `prewarm()`, then the stream of `frames_npz`.  Writes to `out_json`
+    what was loaded before `prewarm`, what it built and loaded, and every
+    build that ran after it returned."""
+    from droid_slam_tpu_torch.config import SLAMConfig
+    from droid_slam_tpu_torch.ops import corr, cuda_build
+    from droid_slam_tpu_torch.runtime.slam import Droid
+
+    data = np.load(frames_npz)
+    build, builds = cuda_build._build, []
+    with tempfile.TemporaryDirectory() as build_dir:
+        cuda_build.BUILD_DIR = build_dir
+        cuda_build._build = lambda names: builds.append(list(names)) or build(
+            names)
+        loaded_before = sorted(cuda_build._libs)
+        droid = Droid(SLAMConfig(fused=False), weights_path=WEIGHTS)
+        t = time.time()
+        droid.prewarm()
+        prewarm_s = time.time() - t
+        by_prewarm, loaded = list(builds), sorted(cuda_build._libs)
+        corr.reset_launch_counts()
+        for k, image in enumerate(data["images"]):
+            droid.track(float(k), image, intrinsics=data["intrinsics"])
+        torch.cuda.synchronize()
+        out = dict(source_names=cuda_build.source_names(),
+                   loaded_before=loaded_before,
+                   built_by_prewarm=sorted(n for b in by_prewarm for n in b),
+                   loaded_after_prewarm=loaded, prewarm_s=prewarm_s,
+                   builds_after_prewarm=builds[len(by_prewarm):],
+                   frames=len(data["images"]),
+                   keyframes=droid.video.counter,
+                   lookup_launches=corr.launch_counts()["corr_lookup"])
+    with open(out_json, "w") as f:
+        json.dump(out, f)
+
+
+def run_children(target, args_of, label, timeout):
+    """Start `target(*args_of(i))` in len(args_of) fresh processes side by
+    side and join them, each within `timeout` seconds; raises if one
+    fails, and ends any that is still running."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=a) for a in args_of]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=timeout)
+            if p.is_alive():
+                raise RuntimeError(f"{label}: a child ran past {timeout} s")
+            if p.exitcode != 0:
+                raise RuntimeError(f"{label}: a child exited {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def prewarm_check(scene, tmp):
+    """`prewarm_child` on the mono cell's frames; raises unless nothing was
+    loaded before `prewarm`, it built and loaded every kernel source, no
+    build ran after it returned and the stream launched the lookup."""
+    frames = os.path.join(tmp, "frames.npz")
+    np.savez(frames, images=scene["images"],
+             intrinsics=scene["intrinsics"][0])
+    res = os.path.join(tmp, "prewarm.json")
+    run_children(prewarm_child, [(frames, res)], "prewarm check", 300)
+    with open(res) as f:
+        out = json.load(f)
+    if (out["loaded_before"] or out["builds_after_prewarm"]
+            or out["built_by_prewarm"] != out["source_names"]
+            or out["loaded_after_prewarm"] != out["source_names"]
+            or out["lookup_launches"] <= 0):
+        raise RuntimeError(f"host frontend path: prewarm check {out}")
+    return out
+
+
+def host_frontend_phase(corr, scene, main):
+    """The mono cell under `SLAMConfig(fused=False)`, the host-driven
+    frontend, twice, each after `prewarm()`: raises unless the two
+    trajectories are bit-equal (and what `serving_phase` requires).
+    Reads the host-clock phase timers of the second run's tracking,
+    holds the lookup kernel against its plain version on that run's
+    frontend edges, then serves that run's map with the live viewer and
+    raises unless /map.bin parses, has a camera per keyframe and equals
+    `map_snapshot`.  Last, `prewarm_check` in a fresh process (this one
+    has loaded every kernel already)."""
+    import urllib.request
+
+    from droid_slam_tpu_torch.config import SLAMConfig
+    from droid_slam_tpu_torch.runtime.viewer import (decode_map,
+                                                     map_snapshot,
+                                                     start_viewer)
+    from droid_slam_tpu_torch.utils.timers import GLOBAL_TIMERS
+
+    cfg = SLAMConfig(fused=False)
+    seen = {}
+
+    def before_stream(droid):
+        droid.prewarm()
+        GLOBAL_TIMERS.reset()
+
+    def before_terminate(droid):
+        seen.update(edges=droid.frontend.active_edges(),
+                    timers=GLOBAL_TIMERS.summary())
+
+    runs = [serving_phase(corr, "host frontend path", cfg, scene,
+                          before_stream=before_stream,
+                          before_terminate=before_terminate)
+            for _ in range(2)]
+    out, droid, _, traj = runs[1]
+    out.update(fused_main_path_keyframes=main["keyframes"],
+               repeat_max_traj_diff=float(np.abs(runs[0][3] - traj).max()),
+               timers_warm_ms={k: v["warm_ms"]
+                               for k, v in seen["timers"].items()},
+               timers_count={k: v["count"]
+                             for k, v in seen["timers"].items()},
+               timers_note="host clock, no card sync: launch and host-read "
+                           "time, not device time")
+    # after the launch counts were read: these launches only compare
+    out["kernel_check"] = block_kernel_check(
+        corr, cfg, droid, *seen["edges"], edge_chunk=cfg.frontend_edge_cap)
+
+    viewer = start_viewer(droid.video, port=0)
+    try:
+        base = f"http://127.0.0.1:{viewer.port}"
+        page = urllib.request.urlopen(f"{base}/", timeout=30).read()
+        raw = urllib.request.urlopen(f"{base}/map.bin", timeout=60).read()
+    finally:
+        viewer.close()
+    got = decode_map(raw)
+    want = map_snapshot(droid.video)
+    out["viewer"] = dict(page_bytes=len(page), map_bytes=len(raw),
+                         points=len(got[0]), cameras=len(got[2]),
+                         equals_snapshot=all(
+                             a.shape == b.shape and np.array_equal(a, b)
+                             for a, b in zip(got, want)))
+    with tempfile.TemporaryDirectory() as tmp:
+        out["prewarm"] = prewarm_check(scene, tmp)
+    print("host frontend path: " + json.dumps(out), flush=True)
+    if out["repeat_max_traj_diff"] != 0.0:
+        raise RuntimeError(f"host frontend path: a second run's trajectory "
+                           f"differs by {out['repeat_max_traj_diff']}")
+    v = out["viewer"]
+    if (b"<html" not in page or v["cameras"] != droid.video.counter
+            or not v["equals_snapshot"] or v["points"] <= 0):
+        raise RuntimeError(f"host frontend path: viewer {v}")
+    return out
+
+
+def distributed_backend_phase(corr, snap):
+    """The main path's state, copied just before `terminate`, finished
+    (global BA passes of 7 and 12 sweeps) by the single-device backend,
+    then twice by `Backend(distributed=True)` over two shards on the one
+    card.  Then the first sharded BA call's inputs go through the sharded
+    and the single-device solver once more, side by side.  Raises unless
+    every sweep went through the sharded solver, the two distributed runs
+    are bit-equal, the one-call solvers agree within the CPU test's bounds
+    (poses atol 2e-4 / rtol 1e-3, every disparity atol 2e-3 / rtol 2e-2),
+    and after the 19 sweeps the poses agree within 2e-3 and the median
+    disparity within 2e-3.  The sweeps feed each BA's result back through
+    the update operator, so single pixels drift further; the line shows
+    the confidence and damping of the pixels that drift most beside the
+    medians."""
+    from droid_slam_tpu_torch.ops import dba as dba_ops
+    from droid_slam_tpu_torch.parallel import dba as pdba
+    from droid_slam_tpu_torch.parallel.launch import ba_mesh
+    from droid_slam_tpu_torch.runtime.backend import Backend
+    from droid_slam_tpu_torch.runtime.state import DepthVideo
+
+    cfg, n = snap["cfg"], snap["counter"]
+    mesh = ba_mesh(devices=["cuda:0", "cuda:0"])
+    solve = pdba.distributed_ba
+    calls, first, last = [], {}, {}
+
+    def traced(*a, **k):
+        if not first:
+            first.update(args=[x.clone() if torch.is_tensor(x) else x
+                               for x in a], kw=k)
+        # per-pixel confidence of the last call: the mean weight of the
+        # edges leaving each keyframe, summed over them
+        weight, shards = a[6], a[7]
+        conf = torch.zeros((n,) + weight.shape[1:3], device=weight.device)
+        for ii_s, rows_s, m_s in zip(shards[0], shards[2], shards[3]):
+            conf.index_add_(0, torch.as_tensor(ii_s[m_s], device="cuda"),
+                            weight[torch.as_tensor(rows_s[m_s],
+                                                   device="cuda")].mean(-1))
+        last.update(conf=conf)
+        calls.append(1)
+        return solve(*a, **k)
+
+    pdba.distributed_ba = traced
+
+    def finish(distributed):
+        video = DepthVideo(cfg, "cuda")
+        for f, t in snap["state"].items():
+            getattr(video.state, f).copy_(t)
+        video.counter = n
+        backend = Backend(snap["net"], video, cfg, distributed=distributed,
+                          mesh=mesh)
+        torch.cuda.synchronize()
+        corr.reset_launch_counts()
+        t = time.time()
+        for steps in (7, 12):
+            backend(steps)
+        torch.cuda.synchronize()
+        return dict(poses=video.state.poses[:n].clone(),
+                    disps=video.state.disps[:n].clone(),
+                    damping=video.state.damping[:n].clone(),
+                    s=time.time() - t,
+                    launches=corr.launch_counts()["corr_lookup"])
+
+    try:
+        single = finish(False)
+        n_single = len(calls)
+        dist = [finish(True) for _ in range(2)]
+    finally:
+        pdba.distributed_ba = solve
+
+    # one BA call, the same inputs through both solvers
+    args, kw = first["args"], first["kw"]
+    (poses, disps, disps_sens, intr, eta, target, weight, shards, devices,
+     t0, t1) = args
+    ii_s, jj_s, rows_s, m_s = shards[:4]
+    E = target.shape[0]
+    ii_f, jj_f = np.zeros(E, np.int64), np.zeros(E, np.int64)
+    m_f = np.zeros(E, bool)
+    for s in range(len(ii_s)):
+        r = rows_s[s][m_s[s]]
+        ii_f[r], jj_f[r], m_f[r] = ii_s[s][m_s[s]], jj_s[s][m_s[s]], True
+    kx, kmask = dba_ops.build_schur_tables(ii_f, m_f, t0, t1, kw["P"])
+    p_dist, d_dist = solve(*args, **kw)
+    p_one, d_one = dba_ops.ba(
+        poses, disps, disps_sens, intr, target, weight, eta,
+        *(torch.as_tensor(x, device="cuda") for x in (ii_f, jj_f, m_f, kx,
+                                                       kmask)),
+        t0, t1, iters=kw["iters"], lm=kw["lm"], ep=kw["ep"], P=kw["P"])
+
+    def outside(a, b, atol, rtol):
+        return int(((a - b).abs() > atol + rtol * b.abs()).sum())
+
+    dd = (dist[0]["disps"] - single["disps"]).abs()
+    worst = torch.topk(dd.flatten(), 10).indices
+    conf, damp = last["conf"].flatten(), single["damping"].flatten()
+    out = dict(
+        keyframes=n, shards=len(mesh), sharded_ba_calls=len(calls),
+        single_calls=n_single,
+        one_call=dict(
+            edges=int(m_f.sum()),
+            max_pose_diff=float((p_dist - p_one).abs().max()),
+            poses_outside_bound=outside(p_dist, p_one, 2e-4, 1e-3),
+            max_disp_diff=float((d_dist - d_one).abs().max()),
+            disps_outside_bound=outside(d_dist, d_one, 2e-3, 2e-2)),
+        max_pose_diff=float((dist[0]["poses"] - single["poses"])
+                            .abs().max()),
+        max_disp_diff=float(dd.max()),
+        median_disp_diff=float(dd.median()),
+        disp_diff_quantiles={q: float(torch.quantile(dd.flatten(), q))
+                             for q in (0.9, 0.99, 0.999)},
+        pixels=dd.numel(),
+        pixels_outside_disp_tol=outside(dist[0]["disps"], single["disps"],
+                                        2e-3, 2e-2),
+        worst_pixels=dict(
+            disp_diff=dd.flatten()[worst].tolist(),
+            disp_single=single["disps"].flatten()[worst].tolist(),
+            confidence=conf[worst].tolist(),
+            damping=damp[worst].tolist()),
+        median_confidence=float(conf.median()),
+        median_damping=float(damp.median()),
+        repeat_bit_equal=bool(
+            torch.equal(dist[0]["poses"], dist[1]["poses"])
+            and torch.equal(dist[0]["disps"], dist[1]["disps"])),
+        backend_s_single=single["s"],
+        backend_s_distributed=[d["s"] for d in dist],
+        lookup_launches_single=single["launches"],
+        lookup_launches=dist[0]["launches"])
+    print("distributed backend path: " + json.dumps(out), flush=True)
+    if n_single or len(calls) != 2 * 19:
+        raise RuntimeError(f"distributed backend path: {len(calls)} sharded "
+                           f"BA calls ({n_single} single), want 2 x 19")
+    one = out["one_call"]
+    if one["poses_outside_bound"] or one["disps_outside_bound"]:
+        raise RuntimeError(f"distributed backend path: one BA call off the "
+                           f"single-device solver: {one}")
+    if not (out["max_pose_diff"] < 2e-3 and out["median_disp_diff"] < 2e-3
+            and out["repeat_bit_equal"]):
+        raise RuntimeError(f"distributed backend path: poses off the "
+                           f"single-device backend by "
+                           f"{out['max_pose_diff']} (bound 2e-3), the median "
+                           f"disparity by {out['median_disp_diff']} (bound "
+                           f"2e-3), or the two runs differ: {out}")
+    if out["lookup_launches"] <= 0:
+        raise RuntimeError("distributed backend path: no lookup launch")
+    return out
 
 
 def stereo_phase(corr, n_frames):
@@ -771,12 +1141,22 @@ def run_cli(args, label, timeout, cwd=None):
     with this checkout importable); its standard output, raising with its
     output when it fails."""
     env = dict(os.environ, PYTHONPATH=os.getcwd())
-    res = subprocess.run([sys.executable, "-m", *args], capture_output=True,
-                         text=True, timeout=timeout, cwd=cwd, env=env)
-    if res.returncode != 0:
-        raise RuntimeError(f"{label}: exit {res.returncode}\n"
-                           f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
-    return res.stdout
+    # a session of its own: a timeout ends the child and everything it
+    # started (torch.distributed.run's ranks)
+    proc = subprocess.Popen([sys.executable, "-m", *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=cwd, env=env,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise RuntimeError(f"{label}: exit {proc.returncode}\n"
+                           f"{out[-4000:]}\n{err[-4000:]}")
+    return out
 
 
 def cli_path_phase(corr, n_frames):
@@ -1207,6 +1587,332 @@ def tartan_training_phase(corr, tmp):
     return out, ckpt
 
 
+def dp_train_config():
+    """The data-parallel phase's `TrainConfig`, as the training CLI builds
+    it from the phase's flags (`--fix_scale` not given)."""
+    from droid_slam_tpu_torch.config import TrainConfig
+
+    return TrainConfig(batch=2, steps=2, iters=DP_ITERS, fix_scale=False)
+
+
+def dp_step1_gradient(batch_np, ii, jj, passes, remat=False):
+    """The training CLI's step-1 gradient sum on `batch_np`: `passes`
+    accumulate passes of its restart chain, each from the last one's
+    estimates, from the seeded initialisation, before any all-reduce;
+    returns (gradients on the card, metrics of the last pass)."""
+    from droid_slam_tpu_torch.training import train_step as tts
+    from droid_slam_tpu_torch.training.trainer import (edge_capacity,
+                                                       make_batch)
+
+    cfg = dp_train_config()
+    net = tts.create_train_state(cfg, 0, "cuda").net
+    batch = make_batch(batch_np, ii, jj, edge_capacity(cfg), "cuda")
+    accum, _ = tts.make_train_step(iters=cfg.iters, fix_scale=cfg.fix_scale,
+                                   remat=remat)
+    B, N = batch["images"].shape[:2]
+    h8, w8 = batch["disps"].shape[-2:]
+    Gs0 = torch.zeros((B, N, 7), device="cuda")
+    disp0 = torch.zeros((B, N, h8, w8), device="cuda")
+    grads = tts.zero_grads(net)
+    for _ in range(passes):
+        grads, metrics = accum(grads, net, batch, Gs0, disp0)
+        Gs0, disp0 = metrics.pop("_Gs_last"), metrics.pop("_disp_last")
+    return grads, metrics
+
+
+def flat_cpu(grads):
+    """A gradient dict as one flat f32 tensor on the host, by name."""
+    return torch.cat([v.reshape(-1).cpu() for _, v in sorted(grads.items())])
+
+
+def deterministic(on):
+    """cuDNN's deterministic algorithms and PyTorch's deterministic
+    implementations where an op has one (warnings elsewhere)."""
+    torch.backends.cudnn.deterministic = on
+    torch.use_deterministic_algorithms(on, warn_only=True)
+
+
+def dp_child_setup(batch_npz):
+    """A fresh child's numerics as the smoke's (no TF32, deterministic
+    algorithms) and the saved step-1 batch, graph and pass count."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic(True)
+    data = np.load(batch_npz)
+    batch = {k: data[k] for k in ("images", "poses", "disps", "intrinsics")}
+    return batch, data["ii"], data["jj"], int(data["passes"])
+
+
+def dp_rank_child(rank, port, batch_npz, out_path):
+    """One of two ranks sharing the card, joined as torchrun would join
+    them: `dp_step1_gradient` on this rank's slice of the batch, then the
+    all-reduce; writes both gradients and the reduced loss.  The ranks
+    take turns (a barrier, the cache emptied), so that each runs its
+    first step as a process alone on the card does: side by side, a
+    rank's gradient was not bit-equal to the same step taken alone."""
+    from droid_slam_tpu_torch.parallel.launch import (initialize_distributed,
+                                                      local_batch_slice)
+    from droid_slam_tpu_torch.training import train_step as tts
+
+    batch, ii, jj, passes = dp_child_setup(batch_npz)
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                      LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    _, _, backend = initialize_distributed(torch.device("cuda", 0))
+    sl = local_batch_slice(2)
+    for turn in range(2):
+        if turn == rank:
+            grads, metrics = dp_step1_gradient(
+                {k: v[sl] for k, v in batch.items()}, ii, jj, passes)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    local = flat_cpu(grads)
+    grads, metrics = tts.all_reduce_gradients(grads, metrics)
+    torch.save(dict(local=local, reduced=flat_cpu(grads),
+                    loss=float(metrics["loss"]), backend=backend), out_path)
+    torch.distributed.destroy_process_group()
+
+
+def dp_reference_child(batch_npz, out_path):
+    """The ranks' work in one fresh process with no process group: each
+    sample's chain at the ranks' scale (the loss over the world size),
+    twice; then the whole batch of two in one chain as the CLI's single
+    process runs it (recomputing in the backward pass)."""
+    from droid_slam_tpu_torch.training import train_step as tts
+
+    batch, ii, jj, passes = dp_child_setup(batch_npz)
+    tts.world_size = lambda: 2
+    halves = [[dp_step1_gradient({k: v[i:i + 1] for k, v in batch.items()},
+                                 ii, jj, passes) for i in range(2)]
+              for _ in range(2)]
+    out = dict(halves=[[flat_cpu(g) for g, _ in h] for h in halves],
+               losses=[float(m["loss"]) for _, m in halves[0]])
+    del halves
+    tts.world_size = lambda: 1
+    grads, metrics = dp_step1_gradient(batch, ii, jj, passes, remat=True)
+    out.update(whole=flat_cpu(grads), whole_loss=float(metrics["loss"]))
+    torch.save(out, out_path)
+
+
+def dp_exact_check(tmp, batch_np):
+    """The reduction of data-parallel training on the card, with nothing
+    else between the sides.  Two gloo ranks sharing the card
+    (`dp_rank_child`) take the CLI's step 1 (its batch, frame graph and
+    restart passes, drawn from the CLI's seeds) on a sample each and
+    all-reduce; then one fresh process (`dp_reference_child`) takes the
+    same two samples' chains at the ranks' scale, with no process group,
+    and sums them.  Every side runs cuDNN's deterministic algorithms.
+    Also reads this process's own sum of the halves, the reference's
+    floor (its sum twice), what splitting the batch moves (the batch of
+    two in one chain) and two planted faults (an average for the sum, a
+    rank dropped).  Raises unless both ranks hold the same gradient, it
+    is bit-equal to the sum of the ranks' own gradients, and within 1e-6
+    relative L2 of the reference's sum."""
+    import socket
+
+    from droid_slam_tpu_torch.geom.graph_utils import (build_frame_graph,
+                                                       temporal_graph)
+    from droid_slam_tpu_torch.training import train_step as tts
+
+    cfg = dp_train_config()
+    rng = np.random.default_rng([0, 0])           # the trainer's, seed 0
+    if rng.random() < 0.5:
+        ii, jj = build_frame_graph(batch_np["poses"], batch_np["disps"],
+                                   batch_np["intrinsics"], num=cfg.edges,
+                                   device="cuda")
+    else:
+        ii, jj = temporal_graph(cfg.n_frames, r=2)
+    passes, r = 0, 0.0
+    while r < cfg.restart_prob:
+        r = rng.random()
+        passes += 1
+    path = os.path.join(tmp, "dp_batch.npz")
+    np.savez(path, ii=ii, jj=jj, passes=passes, **batch_np)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    outs = [os.path.join(tmp, f"dp_rank{k}.pt") for k in range(2)]
+    t = time.time()
+    run_children(dp_rank_child, [(k, port, path, outs[k]) for k in range(2)],
+                 "data-parallel exact check", 600)
+    ranks_s = time.time() - t
+    ref_path = os.path.join(tmp, "dp_reference.pt")
+    run_children(dp_reference_child, [(path, ref_path)],
+                 "data-parallel exact check (reference)", 600)
+    got = [torch.load(o, weights_only=True) for o in outs]
+    ref = torch.load(ref_path, weights_only=True)
+
+    # this process's own sum of the halves, for the reading only
+    world = tts.world_size
+    deterministic(True)
+    try:
+        tts.world_size = lambda: 2
+        here = sum(flat_cpu(dp_step1_gradient(
+            {k: v[i:i + 1] for k, v in batch_np.items()}, ii, jj,
+            passes)[0]) for i in range(2))
+    finally:
+        tts.world_size = world
+        deterministic(False)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    dp = got[0]["reduced"]
+    halves = ref["halves"]
+    sums = [h[0] + h[1] for h in halves]
+    loss = sum(ref["losses"]) / 2
+    out = dict(
+        passes=passes, edges=len(ii), backend=got[0]["backend"],
+        ranks_s=ranks_s,
+        ranks_bit_equal=bool(torch.equal(dp, got[1]["reduced"])),
+        reduced_bit_equal_to_local_sum=bool(torch.equal(
+            dp, got[0]["local"] + got[1]["local"])),
+        local_rel_l2_vs_reference=[rel(got[k]["local"], halves[0][k])
+                                   for k in range(2)],
+        rel_l2_vs_sum=rel(dp, sums[0]),
+        max_abs_vs_sum=float((dp - sums[0]).abs().max()),
+        bit_equal_to_sum=bool(torch.equal(dp, sums[0])),
+        loss_rel_diff=abs(got[0]["loss"] - loss) / abs(loss),
+        floor_rel_l2=rel(sums[1], sums[0]),
+        this_process_rel_l2=rel(here, sums[0]),
+        split_rel_l2=rel(sums[0], ref["whole"]),
+        split_loss_rel_diff=abs(loss - ref["whole_loss"])
+        / abs(ref["whole_loss"]),
+        planted_average_rel_l2=rel(dp / 2, sums[0]),
+        planted_rank_dropped_rel_l2=rel(halves[0][0], sums[0]))
+    if (not out["ranks_bit_equal"] or out["backend"] != "gloo"
+            or not out["reduced_bit_equal_to_local_sum"]
+            or not out["rel_l2_vs_sum"] <= 1e-6):
+        raise RuntimeError(f"data-parallel training path: the ranks' reduced "
+                           f"gradient is off the in-process sum: {out}")
+    return out
+
+
+def data_parallel_phase(corr, tmp):
+    """The training CLI data parallel: `torch.distributed.run
+    --nproc_per_node 2` (two ranks sharing the card, so gloo) against one
+    process, each with a global batch of 2 from the same seeds, at
+    `TrainConfig()` width with the unrolled iterations cut to DP_ITERS so
+    that both ranks fit the card beside each other.  Reads each run's
+    rank summaries, the step-1 loss rank 0 prints, the step-1 gradient
+    from the step-1 checkpoint (AdamW's first moment, (1 - beta1) times
+    the clipped gradient) and the parameter update after both steps; then
+    holds B2 and B4 against their plain versions on rank 0's first batch,
+    and runs `dp_exact_check` on that batch.  Raises unless the losses
+    are finite, B2/B4 ran on every rank and match their plain versions,
+    the exact check passes (the reduction, bit for bit; within 1e-6 of
+    one process's sum), and the CLI's step-1 losses agree within 2e-3
+    relative and its step-1 gradients within 0.1 relative L2.  Those two
+    bounds hold the rest of the CLI (its slicing, seeds and restart
+    draws) coarsely: on this step splitting the batch alone moves the
+    loss by 8.0e-4 and the gradient by 4.5% (the exact check's
+    `split_*`), a dropped rank moves the gradient by 22% and an average
+    for the sum by 50% (`planted_*`, read on an H100)."""
+    import re
+
+    from droid_slam_tpu_torch.config import TrainConfig
+    from droid_slam_tpu_torch.data.synthetic import SyntheticCurriculum
+    from droid_slam_tpu_torch.models.droidnet import DroidNet, random_init
+
+    common = ["--synthetic", "--scenes", str(DP_SCENES), "--batch", "2",
+              "--steps", "2", "--iters", str(DP_ITERS), "--log_every", "1",
+              "--ckpt_every", "1"]
+
+    def run(name, launcher):
+        t = time.time()
+        stdout = run_cli(launcher + ["droid_slam_tpu_torch.train", *common,
+                                     "--ckpt_dir", name, "--name", name],
+                         f"data-parallel training path ({name})", 900,
+                         cwd=tmp)
+        wall = time.time() - t
+        ranks = sorted((json.loads(line) for line in stdout.splitlines()
+                        if line.startswith('{"device"')),
+                       key=lambda r: r["rank"])
+        losses = [float(x) for x in re.findall(r"^step \d+: loss (\S+)",
+                                               stdout, re.M)]
+        ckpts = [torch.load(os.path.join(tmp, name, f"step_{k:06d}.pt"),
+                            map_location="cpu", weights_only=True)
+                 for k in (1, 2)]
+        return dict(wall=wall, ranks=ranks, losses=losses, ckpts=ckpts)
+
+    dp = run("dp", ["torch.distributed.run", "--standalone",
+                    "--nproc_per_node", "2", "-m"])
+    one = run("one", [])
+
+    def flat(tensors):
+        return torch.cat([t.reshape(-1).float() for t in tensors])
+
+    def moments(ckpt):
+        return flat(v["exp_avg"] for _, v in sorted(
+            ckpt["opt"]["state"].items()))
+
+    init = random_init(DroidNet(), 0).state_dict()
+
+    def update(ckpt):
+        return flat(ckpt["model"][k] - init[k] for k in init)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    ranks = dp["ranks"]
+    out = dict(
+        iters=DP_ITERS, scenes=DP_SCENES,
+        reduced="unrolled iterations cut to fit two ranks on one card; "
+                "width 384x512, 7 frames, as TrainConfig()",
+        backend=ranks[0]["backend"], world_size=ranks[0]["world_size"],
+        ranks=len(ranks), wall_s=dict(dp=dp["wall"], one=one["wall"]),
+        s_per_step=dict(dp=[r["train_s"] / r["steps"] for r in ranks],
+                        one=one["ranks"][0]["train_s"] / 2),
+        peak_mem_bytes=dict(dp=[r["peak_mem_bytes"] for r in ranks],
+                            one=one["ranks"][0]["peak_mem_bytes"]),
+        launches=dict(dp=[r["launches"] for r in ranks],
+                      one=one["ranks"][0]["launches"]),
+        losses=dict(dp=dp["losses"], one=one["losses"]),
+        step1_loss_rel_diff=abs(dp["losses"][0] - one["losses"][0])
+        / abs(one["losses"][0]),
+        step1_grad_rel_l2=rel(moments(dp["ckpts"][0]),
+                              moments(one["ckpts"][0])),
+        update_rel_l2=dict(step1=rel(update(dp["ckpts"][0]),
+                                     update(one["ckpts"][0])),
+                           step2=rel(update(dp["ckpts"][1]),
+                                     update(one["ckpts"][1]))))
+
+    cfg = TrainConfig()
+    t = time.time()
+    dataset = SyntheticCurriculum(cfg, n_scenes=DP_SCENES)
+    batch_np = next(dataset.sample_batches(2, np.random.default_rng([1, 0])))
+    rank0 = {k: v[:1] for k, v in batch_np.items()}
+    out["kernel_check"] = tartan_kernel_check(corr, rank0, cfg)
+    out["kernel_check"]["render_s"] = time.time() - t
+    out["exact"] = dp_exact_check(tmp, batch_np)
+    print("data-parallel training path: " + json.dumps(out), flush=True)
+
+    kc = out["kernel_check"]
+    if (out["world_size"] != 2 or len(ranks) != 2
+            or out["backend"] != "gloo"
+            or len(dp["losses"]) != 2 or len(one["losses"]) != 2
+            or not np.all(np.isfinite(dp["losses"] + one["losses"]))):
+        raise RuntimeError(f"data-parallel training path: {out}")
+    if not (out["step1_loss_rel_diff"] < 2e-3
+            and out["step1_grad_rel_l2"] < 0.1):
+        raise RuntimeError(f"data-parallel training path: step 1 disagrees "
+                           f"with one process: loss "
+                           f"{out['step1_loss_rel_diff']}, gradient "
+                           f"{out['step1_grad_rel_l2']}")
+    for r in ranks:
+        fwd, bwd = (r["launches"]["lookup_level_fwd"],
+                    r["launches"]["lookup_level_bwd"])
+        if fwd <= 0 or fwd % DP_ITERS or bwd != 4 * fwd:
+            raise RuntimeError(f"data-parallel training path: rank "
+                               f"{r['rank']} launches {r['launches']}")
+    if (kc["lookup_level_fwd_max_abs_err"]
+            or kc["lookup_level_bwd_max_abs_err"]):
+        raise RuntimeError(f"data-parallel training path: B2/B4 differ from "
+                           f"their plain versions on rank 0's batch: {kc}")
+    return out
+
+
 def synthetic_eval_phase(ckpt):
     """`evaluate synthetic --compare` with the shipped weights (their ATE
     must be below the seeded initialisation's), then with the training
@@ -1272,7 +1978,10 @@ def main():
     level = level_kernel_phase(corr)
     print("level kernel phase: " + json.dumps(level), flush=True)
 
-    main, scene, main_traj = main_path_phase(corr, FRAMES)
+    main, scene, main_traj, main_snap = main_path_phase(corr, FRAMES)
+    host = host_frontend_phase(corr, scene, main)
+    dist = distributed_backend_phase(corr, main_snap)
+    del main_snap
     determinism_phase(scene)
     pth = pth_path_phase(corr, scene, main_traj, tol=0.0)
     stereo = stereo_phase(corr, FRAMES_STEREO_RGBD)
@@ -1283,6 +1992,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         tartan, ckpt = tartan_training_phase(corr, tmp)
         synthetic_eval_phase(ckpt)
+    with tempfile.TemporaryDirectory() as tmp:
+        dp = data_parallel_phase(corr, tmp)
 
     def bound_by(rep):
         return "bytes" if rep["bytes_ms"] >= rep["ops_ms"] else "operations"
@@ -1296,17 +2007,21 @@ def main():
         launches_by_path=dict(mono=main["lookup_launches"],
                               pth=pth["lookup_launches"],
                               stereo=stereo["lookup_launches"],
-                              cli=cli["lookup_launches"]),
+                              cli=cli["lookup_launches"],
+                              host=host["lookup_launches"],
+                              distributed_backend=dist["lookup_launches"],
+                              data_parallel=0),
         max_abs_err=max(kern["max_abs_err"],
                         stereo["kernel_check"]["max_abs_err"],
-                        cli["kernel_check"]["max_abs_err"]),
+                        cli["kernel_check"]["max_abs_err"],
+                        host["kernel_check"]["max_abs_err"]),
         ms=kern["ms"], plain_ms=kern["plain_ms"],
         bound_ms=kern["bound_ms"], bound_by=bound_by(kern),
         library_ms=kern["library_ms"],
         note="ms per 4-level pyramid lookup of 64 edges at 240x320 in "
              "one launch, identity grid plus a small flow; launches on "
              "the cli path (the demo at 384x512); max_abs_err also over "
-             "the stereo and cli paths' blocks",
+             "the stereo, cli and host frontend paths' blocks",
     )]
     replaces = {
         "lookup_level_fwd": "droid_slam_tpu/ops/corr_pallas.py:83 "
@@ -1316,11 +2031,10 @@ def main():
         "lookup_level_bwd": "droid_slam_tpu/ops/corr.py:125 (gradient of "
                             "lookup_level, which JAX differentiates; no "
                             "Pallas kernel)"}
-    tartan_err = {
-        "lookup_level_fwd":
-            tartan["kernel_check"]["lookup_level_fwd_max_abs_err"],
-        "lookup_level_bwd":
-            tartan["kernel_check"]["lookup_level_bwd_max_abs_err"]}
+    path_err = {
+        name: max(tartan["kernel_check"][f"{name}_max_abs_err"],
+                  dp["kernel_check"][f"{name}_max_abs_err"])
+        for name in ("lookup_level_fwd", "lookup_level_bwd")}
     for name, rep in level.items():
         kernels.append(dict(
             name=name, route="cuda",
@@ -1328,15 +2042,19 @@ def main():
             replaces=replaces[name], launches=training["launches"][name],
             launches_by_path=dict(
                 training=training["launches"][name],
-                tartan=tartan["launches"][name]),
-            max_abs_err=max(rep["max_abs_err"], tartan_err.get(name, 0.0)),
+                tartan=tartan["launches"][name],
+                host=0, distributed_backend=0,
+                data_parallel=sum(r[name] for r in dp["launches"]["dp"])),
+            max_abs_err=max(rep["max_abs_err"], path_err.get(name, 0.0)),
             ms=rep["ms"],
             plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=bound_by(rep), library_ms=rep["library_ms"],
             note="ms per 4-level pyramid of 40 edge slots at 384x512 "
                  "(f32), identity grid plus a small flow; launches on "
-                 "the training main path; max_abs_err also over a batch "
-                 "of the TartanAir path (B2 and B4)",
+                 "the training main path (data_parallel: both ranks); "
+                 "max_abs_err also over a batch of the TartanAir path "
+                 "and rank 0's batch of the data-parallel path (B2 and "
+                 "B4)",
         ))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,12 @@
 """Configuration for the SLAM runtime and for training.
 
-The fields and presets of the JAX package's `SLAMConfig`, less the ones
+The fields and presets of the JAX package's `SLAMConfig`, less two that
 only its runtime reads: `lookup_impl` (the port has no implementation
 switch: CUDA tensors go through the hand-written lookup kernel, CPU
-tensors through its plain PyTorch version, ops/corr.py),
-`schur_degree_cap` and `distributed_backend` (the edge-sharded global BA
-is not ported yet).
+tensors through its plain PyTorch version, ops/corr.py) and
+`schur_degree_cap` (the port's dense BA builds each depth frame's Schur
+terms from the edges that leave it, by index, with no per-frame degree
+table to size, ops/dba.py).
 """
 
 import dataclasses
@@ -57,9 +58,13 @@ class SLAMConfig:
     frontend_depth_cap: int = 64
     # trajectory filler batch
     filler_batch: int = 16
-    # per-keyframe frontend step (runtime/fused.py); the only frontend
-    # the port drives after warmup
+    # per-keyframe frontend step on the fused graph state
+    # (runtime/fused.py); False drives it from the host factor graph
+    # (runtime/frontend.py)
     fused: bool = True
+    # route the backend's global BA through the edge-sharded solver
+    # (parallel/dba.py) when the BA mesh has more than one device
+    distributed_backend: bool = False
     # low-memory on-the-fly correlation: query pixels per volume block
     # (0 = auto: chunk only when the level-0 volume would exceed ~0.6 GB)
     corr_pixel_chunk: int = 0
@@ -104,9 +109,12 @@ PRESETS = {
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters: the JAX package's `TrainConfig`, less the
-    fields nothing in this package reads (`noise`, `scale`,
-    `world_size`).  `fmin` and `fmax` bound the flow (pixels) between
-    consecutive frames of a TartanAir sample's walk."""
+    fields nothing in this package reads (`noise`, `scale`) and
+    `world_size`: the JAX trainer builds its mesh from that field, while
+    this one reads the size of the process group that torchrun started
+    (parallel/launch.world_size).  `fmin` and `fmax` bound the flow
+    (pixels) between consecutive frames of a TartanAir sample's walk.
+    `batch` is the global batch, shared by the data-parallel ranks."""
 
     lr: float = 2.5e-4
     steps: int = 250000

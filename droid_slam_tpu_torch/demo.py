@@ -9,6 +9,8 @@ without OpenCV; JPEG needs OpenCV or PIL.
 Examples:
   python -m droid_slam_tpu_torch.demo --imagedir data/images \\
       --calib calib/tum3.txt --weights weights/droid_synth.npz
+  python -m droid_slam_tpu_torch.demo --imagedir data/images \\
+      --calib calib/tum3.txt --viewer 8080   # http://127.0.0.1:8080/
   python -m droid_slam_tpu_torch.demo --synthetic 30 --device cpu
 
 Runs on the CUDA card unless --device names another torch device.  The
@@ -80,6 +82,9 @@ def build_parser():
                    help="output trajectory file (t x y z qx qy qz qw)")
     p.add_argument("--export_ply", default=None,
                    help="write the filtered keyframe point cloud here")
+    p.add_argument("--viewer", type=int, default=None, metavar="PORT",
+                   help="serve a live WebGL view of the map on this port "
+                        "of 127.0.0.1 while tracking (0: any free port)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     return p
@@ -131,6 +136,10 @@ def main(argv=None):
         )
     cfg = dataclasses.replace(PRESETS[args.preset], **overrides)
     droid = Droid(cfg, weights_path=args.weights, device=device)
+    viewer = None
+    if args.viewer is not None:
+        from .runtime.viewer import start_viewer
+        viewer = start_viewer(droid.video, port=args.viewer)
 
     def sync():
         if device.type == "cuda":
@@ -170,6 +179,8 @@ def main(argv=None):
     if device.type == "cuda":
         summary.update(launches=corr.launch_counts(),
                        peak_mem_bytes=torch.cuda.max_memory_allocated(device))
+    if viewer is not None:
+        viewer.close()
     print(json.dumps(summary))
     return 0
 

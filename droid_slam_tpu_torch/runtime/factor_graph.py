@@ -1,9 +1,12 @@
 """Covisibility factor graph driven from the host.
 
-Serves the warmup bootstrap (runtime/frontend.py), the global-BA backend
-and the trajectory filler.  Edge bookkeeping (slot allocation, dedup, LRU
-eviction, proximity selection) is numpy on the host; per-edge GRU state,
-targets and weights live in slot-indexed device tensors.
+Serves the host-driven frontend and its warmup bootstrap
+(runtime/frontend.py), the global-BA backend and the trajectory filler.
+Edge bookkeeping (slot allocation, dedup, LRU eviction, proximity
+selection, keyframe removal) is numpy on the host; per-edge GRU state,
+targets and weights live in slot-indexed device tensors, and the
+inactive store's rows sit beside the host lists `ii_inac`/`jj_inac`, row
+k for edge k.
 
 Slots are handed out from a free list that grows in power-of-two steps up
 to the edge capacity, and the update operator runs over the slots in
@@ -21,6 +24,8 @@ import torch
 from ..geom import projective
 from ..models.update import upsample_disp
 from ..ops import corr as corr_ops
+from ..utils.mem import log_mem
+from ..utils.timers import GLOBAL_TIMERS as _T
 from .proximity import select_proximity_edges
 from .state import pool_pyramid
 
@@ -73,6 +78,10 @@ class FactorGraph:
         self.max_factors = max_factors
         self.upsample = upsample
         self.ht, self.wd = video.fht, video.fwd
+        # optional BA override fn(target, weight, eta, ii, jj, mask, t0,
+        # t1) for the global sweeps: the backend routes them through the
+        # edge-sharded solver (parallel/dba.py) with it
+        self.ba_fn = None
 
         self.E = edge_cap or max(self.cfg.frontend_edge_cap, max_factors + 16)
         self.I = inac_cap if inac_cap is not None else min(self.E, 256)
@@ -252,6 +261,30 @@ class FactorGraph:
         self.age = self.age[keep]
         self.slots = self.slots[keep]
 
+    def rm_keyframe(self, ix):
+        """Drop keyframe ix: slot ix+1 moves into it (`copy_slot`), edges
+        touching ix go, and every index above ix shifts down by one, in
+        the inactive store too (its rows compacted with its lists)."""
+        self.video.copy_slot(ix, ix + 1)
+
+        m = (self.ii_inac == ix) | (self.jj_inac == ix)
+        self.ii_inac = np.where(self.ii_inac >= ix, self.ii_inac - 1,
+                                self.ii_inac)
+        self.jj_inac = np.where(self.jj_inac >= ix, self.jj_inac - 1,
+                                self.jj_inac)
+        if m.any():
+            keep = np.nonzero(~m)[0]
+            rows = self._t(keep)
+            self.target_inac[: len(keep)] = self.target_inac[rows]
+            self.weight_inac[: len(keep)] = self.weight_inac[rows]
+            self.ii_inac = self.ii_inac[keep]
+            self.jj_inac = self.jj_inac[keep]
+
+        m = (self.ii == ix) | (self.jj == ix)
+        self.ii = np.where(self.ii >= ix, self.ii - 1, self.ii)
+        self.jj = np.where(self.jj >= ix, self.jj - 1, self.jj)
+        self.rm_factors(m, store=False)
+
     # -- update + BA rounds -----------------------------------------------
 
     def update(self, t0=None, t1=None, itrs=2, use_inactive=False,
@@ -259,26 +292,36 @@ class FactorGraph:
         """One update-operator + BA round."""
         if self.n == 0:
             return
-        self._run_update_op()
+        with _T.phase("graph.update_core"):
+            self._run_update_op()
         if t0 is None:
             t0 = max(1, int(self.ii.min()) + 1)
-        self._ba(t0, t1, itrs, use_inactive, motion_only)
+        with _T.phase("graph.ba"):
+            self._ba(t0, t1, itrs, use_inactive, motion_only)
         self.age += 1
 
     def update_lowmem(self, steps=8):
         """Global BA sweeps with the backend damping profile."""
         t = self.video.counter
-        for _ in range(steps):
+        for step in range(steps):
             if self.n == 0:
                 return
-            self._run_update_op()
+            with _T.phase("graph.update_core"):
+                self._run_update_op()
+            if step == 0:
+                log_mem("update_lowmem: first update sweep", self.dev)
             eta = 0.2 * self.video.state.damping + DAMPING_EPS
             ii, jj, mask = self._edge_arrays()
-            self.video.ba(
-                self.target, self.weight, eta, ii, jj, mask, 1, t,
-                itrs=self.cfg.ba_iters, lm=self.cfg.backend_lm,
-                ep=self.cfg.backend_ep, motion_only=False,
-                pose_cap=self.P, depth_cap=self.K)
+            with _T.phase("graph.ba"):
+                if self.ba_fn is not None:
+                    self.ba_fn(self.target, self.weight, eta, ii, jj, mask,
+                               1, t)
+                else:
+                    self.video.ba(
+                        self.target, self.weight, eta, ii, jj, mask, 1, t,
+                        itrs=self.cfg.ba_iters, lm=self.cfg.backend_lm,
+                        ep=self.cfg.backend_ep, motion_only=False,
+                        pose_cap=self.P, depth_cap=self.K)
 
     def _ba(self, t0, t1, itrs, use_inactive, motion_only):
         """BA over the active edges plus the newest recent inactive ones."""
@@ -326,9 +369,10 @@ class FactorGraph:
         if len(ix) == 0 or len(jx) == 0:
             return
         ii_g, jj_g = np.meshgrid(ix, jx, indexing="ij")
-        d = self.video.distance(ii_g.reshape(-1), jj_g.reshape(-1),
-                                beta=beta, bidirectional=False)
-        d = d.cpu().numpy().reshape(len(ix), len(jx))
+        with _T.phase("proximity.distance"):
+            d = self.video.distance(ii_g.reshape(-1), jj_g.reshape(-1),
+                                    beta=beta, bidirectional=False)
+            d = d.cpu().numpy().reshape(len(ix), len(jx))
         max_f = self.max_factors if self.max_factors > 0 else 1 << 40
         ii_sel, jj_sel = select_proximity_edges(
             d, t0, t1, t,
@@ -336,4 +380,5 @@ class FactorGraph:
             np.concatenate([self.jj, self.jj_inac]),
             rad, nms, thresh, max_f, self.cfg.stereo)
         if len(ii_sel):
-            self.add_factors(ii_sel, jj_sel, remove)
+            with _T.phase("proximity.add_factors"):
+                self.add_factors(ii_sel, jj_sel, remove)

@@ -232,6 +232,44 @@ class KeyframeStep:
         self.cache_vols = volume_cache_fits(cfg, self.EA, video.fht,
                                             video.fwd)
 
+    def update_op(self, g, act, vols=None):
+        """Update operator over the active edge slots `act` (non-empty):
+        new GRU state, targets and weights, and the damping of their
+        source frames.  Returns (source frames, upsampling mask or
+        None)."""
+        cfg, video = self.cfg, self.video
+        st = video.state
+        ht, wd = video.fht, video.fwd
+        dev = video.device
+        a = _rows(act, dev)
+        ii_a, jj_a = _rows(g.ii[act], dev), _rows(g.jj[act], dev)
+        coords1, _ = projective.projective_transform(
+            st.poses[None], st.disps[None], st.intrinsics[None],
+            ii_a, jj_a)
+        coords1 = coords1[0]
+        coords0 = projective.coords_grid(ht, wd, device=dev)
+        motn = torch.clamp(torch.cat(
+            [coords1 - coords0, g.target[a] - coords1], dim=-1),
+            -64.0, 64.0)
+        if vols is not None:
+            corr = corr_ops.lookup_pyramid_flat(
+                vols, coords1.reshape(len(act), ht * wd, 2)
+            ).reshape(len(act), ht, wd, -1)
+        else:
+            corr = edge_correlation(
+                st.fmaps, ii_a, jj_a, coords1,
+                corr_pixel_chunk(cfg, self.EA, ht * wd))
+        ix, frames = segment_ids(ii_a)
+        out = self.net.update(
+            g.net[a], st.inps[ii_a], corr, motn, ix=ix,
+            nseg=len(frames), with_upmask=cfg.upsample)
+        net_new, delta, weight, eta = out[:4]
+        g.net[a] = net_new.float()
+        g.target[a] = coords1 + delta
+        g.weight[a] = weight
+        st.damping[frames] = eta
+        return frames, (out[4] if cfg.upsample else None)
+
     def update_round(self, g, vols=None):
         """Update operator over the active edges, then dense BA over
         active ∪ recent-inactive edges; under `upsample`, the solved
@@ -240,38 +278,10 @@ class KeyframeStep:
         cfg, video = self.cfg, self.video
         st = video.state
         buf = cfg.buffer
-        ht, wd = video.fht, video.fwd
         dev = video.device
         act = np.nonzero(g.active)[0]
-
         if len(act):
-            a = _rows(act, dev)
-            ii_a, jj_a = _rows(g.ii[act], dev), _rows(g.jj[act], dev)
-            coords1, _ = projective.projective_transform(
-                st.poses[None], st.disps[None], st.intrinsics[None],
-                ii_a, jj_a)
-            coords1 = coords1[0]
-            coords0 = projective.coords_grid(ht, wd, device=dev)
-            motn = torch.clamp(torch.cat(
-                [coords1 - coords0, g.target[a] - coords1], dim=-1),
-                -64.0, 64.0)
-            if vols is not None:
-                corr = corr_ops.lookup_pyramid_flat(
-                    vols, coords1.reshape(len(act), ht * wd, 2)
-                ).reshape(len(act), ht, wd, -1)
-            else:
-                corr = edge_correlation(
-                    st.fmaps, ii_a, jj_a, coords1,
-                    corr_pixel_chunk(cfg, self.EA, ht * wd))
-            ix, frames = segment_ids(ii_a)
-            out = self.net.update(
-                g.net[a], st.inps[ii_a], corr, motn, ix=ix,
-                nseg=len(frames), with_upmask=cfg.upsample)
-            net_new, delta, weight, eta = out[:4]
-            g.net[a] = net_new.float()
-            g.target[a] = coords1 + delta
-            g.weight[a] = weight
-            st.damping[frames] = eta
+            frames, upmask = self.update_op(g, act, vols)
 
         # dense BA over active ∪ recent-inactive edges
         ii_act, jj_act = g.ii[act], g.jj[act]
@@ -296,7 +306,7 @@ class KeyframeStep:
         g.age = np.where(g.active, g.age + 1, g.age)
         if len(act) and cfg.upsample:
             st.disps_up[frames] = upsample_disp(st.disps[frames],
-                                                out[4].float())
+                                                upmask.float())
         return g
 
     def select_candidates(self, g, t1):
@@ -359,7 +369,7 @@ class KeyframeStep:
 
         if cull:
             ix = t1 - 2
-            shift_down(st, ix, cfg.upsample)
+            video.copy_slot(ix, ix + 1)
             touch = g.exist() & ((g.ii == ix) | (g.jj == ix))
             g.ii = np.where(g.ii >= ix, g.ii - 1, g.ii)
             g.jj = np.where(g.jj >= ix, g.jj - 1, g.jj)
@@ -379,14 +389,6 @@ def extrapolate(st, tx):
     if tx < st.poses.shape[0]:
         st.poses[tx] = st.poses[tx - 1]
         st.disps[tx] = st.disps[tx - 1].mean()
-
-
-def shift_down(st, ix, upsample):
-    """video[ix] = video[ix+1] for every keyframe buffer but damping;
-    disps_up only under `upsample` (a one-row placeholder otherwise)."""
-    for name in st.SHIFTED + (("disps_up",) if upsample else ()):
-        arr = getattr(st, name)
-        arr[ix] = arr[ix + 1]
 
 
 class FusedFrontend:

@@ -14,6 +14,7 @@ import torch
 from ..geom import projective
 from ..models.droidnet import normalize_images
 from ..ops import corr as corr_ops
+from ..utils.timers import GLOBAL_TIMERS as _T
 
 
 def as_image_batch(image, device):
@@ -62,14 +63,17 @@ class MotionFilter:
     def track(self, tstamp, image, depth=None, intrinsics=None):
         """Returns True when the frame became a keyframe."""
         image = as_image_batch(image, self.video.device)
-        fmap = self.encode(image)
+        with _T.phase("filter.encode"):
+            fmap = self.encode(image)
         intr8 = torch.as_tensor(intrinsics, dtype=torch.float32) / 8.0
 
         if self.video.counter == 0:
             pose = torch.tensor([0, 0, 0, 0, 0, 0, 1.0])
         else:
-            d = float(self.delta(self.fmap[0], fmap[0], self.knet,
-                                 self.kinp))
+            # the gate is a host read: it waits for the encoder too
+            with _T.phase("filter.delta"):
+                d = float(self.delta(self.fmap[0], fmap[0], self.knet,
+                                     self.kinp))
             if not d > self.thresh:
                 return False
             pose = None

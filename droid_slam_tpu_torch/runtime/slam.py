@@ -8,8 +8,9 @@ Input is monocular RGB (H, W, 3), stereo (2, H, W, 3) [left, right]
 under `SLAMConfig(stereo=True)`, or RGB with a metric depth map
 (`track(..., depth=)`, RGB-D).  `SLAMConfig(upsample=True)` keeps the
 keyframes' convex-upsampled full-resolution inverse depths in
-`video.state.disps_up`.  The host-driven (non-fused) frontend is not
-ported: `fused=False` raises NotImplementedError.
+`video.state.disps_up`.  `SLAMConfig(fused=False)` drives the keyframe
+steps from the host-driven factor graph (runtime/frontend.py) instead of
+the fused frontend's graph state (runtime/fused.py).
 """
 
 import torch
@@ -19,6 +20,7 @@ from ..lie import se3
 from ..models.convert import load_weights
 from ..models.droidnet import DroidNet, random_init
 from .backend import Backend
+from .frontend import Frontend
 from .fused import FusedFrontend
 from .motion_filter import MotionFilter
 from .state import DepthVideo
@@ -38,8 +40,6 @@ def resolve_device(device=None):
 class Droid:
     def __init__(self, config: SLAMConfig, weights_path=None, device=None,
                  seed=0):
-        if not config.fused:
-            raise NotImplementedError("only the fused frontend is ported")
         self.cfg = config
         self.device = resolve_device(device)
         # full-f32 matmuls and convolutions (cuDNN would use TF32)
@@ -59,19 +59,28 @@ class Droid:
         self.video = DepthVideo(config, self.device)
         self.filter = MotionFilter(self.net, self.video,
                                    thresh=config.filter_thresh)
-        self.frontend = FusedFrontend(self.net, self.video, config)
+        frontend_cls = FusedFrontend if config.fused else Frontend
+        self.frontend = frontend_cls(self.net, self.video, config)
         self.backend = Backend(self.net, self.video, config)
         self.traj_filler = TrajectoryFiller(self.net, self.video, config)
 
     def prewarm(self, chunk_sizes=()):
-        """No-op: nothing is compiled ahead of time in this package."""
+        """Build and load the CUDA kernels before the stream starts, so
+        that no nvcc build lands mid-stream (nothing to do on the CPU).
+        `chunk_sizes` is accepted for the JAX package's signature: eager
+        PyTorch compiles nothing per chunk size."""
+        if self.device.type == "cuda":
+            from ..ops import cuda_build
+
+            for name in cuda_build.source_names():
+                cuda_build.load(name)
 
     @torch.no_grad()
     def track(self, tstamp, image, depth=None, intrinsics=None):
         """Ingest one frame: RGB (H, W, 3) uint8, or (2, H, W, 3) for a
         stereo config, with an optional (H, W) metric depth map; returns
         True when it passed the motion filter as a keyframe."""
-        if self.frontend.is_initialized:
+        if self.cfg.fused and self.frontend.is_initialized:
             return self.frontend.track_frame(tstamp, image, depth,
                                              intrinsics)
         is_kf = self.filter.track(tstamp, image, depth, intrinsics)
@@ -81,8 +90,8 @@ class Droid:
     @torch.no_grad()
     def track_batch(self, tstamps, images, intrinsics=None):
         """A chunk of frames without depth; encoders run once over the chunk
-        once the frontend is initialized."""
-        if self.frontend.is_initialized:
+        once the fused frontend is initialized."""
+        if self.cfg.fused and self.frontend.is_initialized:
             self.frontend.track_frames(tstamps, images, intrinsics)
         else:
             for t, im in zip(tstamps, images):

@@ -30,8 +30,9 @@ class VideoState:
     damping: torch.Tensor      # (BUF, h, w) f32
     colors: torch.Tensor       # (BUF, h, w, 3) uint8 RGB at [3::8, 3::8]
 
-    # buffers copied by the keyframe shift (everything but damping, and
-    # disps_up, which the shift copies only under upsample)
+    # buffers copied by the keyframe shift (`DepthVideo.copy_slot`):
+    # everything but damping, and disps_up, which the shift copies only
+    # under upsample
     SHIFTED = ("tstamp", "poses", "disps", "disps_sens",
                "intrinsics", "fmaps", "nets", "inps", "colors")
 
@@ -141,6 +142,16 @@ class DepthVideo:
         if image is not None:
             st.colors[c] = keyframe_colors(image)
         self.counter += 1
+
+    def copy_slot(self, dst, src):
+        """Keyframe slot src -> dst in every buffer the culling shift
+        moves (both frontends remove a keyframe with it); disps_up only
+        under `upsample` (a one-row placeholder otherwise)."""
+        st = self.state
+        for name in st.SHIFTED + (("disps_up",) if self.cfg.upsample
+                                  else ()):
+            arr = getattr(st, name)
+            arr[dst] = arr[src]
 
     def normalize(self):
         """Fix the monocular scale gauge: mean disparity of the keyframes

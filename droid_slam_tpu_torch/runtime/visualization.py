@@ -4,8 +4,9 @@ The JAX package's `runtime/visualization.py` (`depth_filter`,
 `iproj_points`, `export_point_cloud`) in plain PyTorch on the Droid's
 device: each keyframe's inverse depths are checked against its six
 temporal neighbours, the consistent pixels are back-projected to world
-points, and the point cloud is written as an ASCII PLY file coloured from
-the keyframes' images.
+points (`filtered_map`, which the live viewer serves too), and the point
+cloud is written as an ASCII PLY file coloured from the keyframes'
+images.
 """
 
 import torch
@@ -74,11 +75,12 @@ def iproj_points(poses_c2w, disps, intrinsics):
 
 
 @torch.no_grad()
-def export_point_cloud(video, path, filter_thresh=0.005, min_count=2):
-    """Write the filtered keyframe map as a coloured ASCII PLY file and
-    return its point count.  A pixel is kept when at least `min_count`
-    neighbours agree with it (threshold `filter_thresh` times the frame's
-    mean disparity) and its disparity is above half the frame's mean."""
+def filtered_map(video, filter_thresh=0.005, min_count=2):
+    """The filtered keyframe map as numpy: world points (N, 3) f32, their
+    colours (N, 3) uint8 and the keyframes' c2w poses (t, 7) f32.  A
+    pixel is kept when at least `min_count` neighbours agree with it
+    (threshold `filter_thresh` times the frame's mean disparity) and its
+    disparity is above half the frame's mean."""
     t = video.counter
     st = video.state
     disps = st.disps[:t]
@@ -87,9 +89,17 @@ def export_point_cloud(video, path, filter_thresh=0.005, min_count=2):
                          torch.arange(t, device=disps.device),
                          filter_thresh * mean)
     masks = (count >= min_count) & (disps > 0.5 * mean[:, None, None])
-    pts = iproj_points(se3.inv(st.poses[:t]), disps, st.intrinsics[0])
-    pts_sel = pts[masks].cpu().numpy()
-    clr_sel = st.colors[:t][masks].cpu().numpy()
+    poses_c2w = se3.inv(st.poses[:t])
+    pts = iproj_points(poses_c2w, disps, st.intrinsics[0])
+    return (pts[masks].float().cpu().numpy(),
+            st.colors[:t][masks].cpu().numpy(),
+            poses_c2w.float().cpu().numpy())
+
+
+def export_point_cloud(video, path, filter_thresh=0.005, min_count=2):
+    """Write the filtered keyframe map (`filtered_map`) as a coloured
+    ASCII PLY file and return its point count."""
+    pts_sel, clr_sel, _ = filtered_map(video, filter_thresh, min_count)
 
     lines = [f"{p[0]:.4f} {p[1]:.4f} {p[2]:.4f} "
              f"{int(c[0])} {int(c[1])} {int(c[2])}\n"

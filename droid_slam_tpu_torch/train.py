@@ -1,4 +1,4 @@
-"""Train DroidNet with the PyTorch/CUDA port on one GPU.
+"""Train DroidNet with the PyTorch/CUDA port on one GPU, or data parallel.
 
 TartanAir frame-graph sampling (or the synthetic curriculum), unrolled
 update iterations with two differentiable BA solves per step, geodesic +
@@ -7,10 +7,18 @@ The last line printed is a JSON summary: samples, the dataset's set-up
 seconds (the covisibility graphs on a first run), training seconds, steps
 and, on the card, the lookup kernels' launches and peak memory.
 
+Under `python -m torch.distributed.run --nproc_per_node N` every rank
+trains on its slice of the global `--batch` (which must divide by N) and
+prints its own summary line (with its rank); NCCL joins ranks with a
+card each, gloo ranks that share a card or run on the CPU
+(parallel/launch.py).  Rank 0 logs, checkpoints and exports.
+
 Examples:
   python -m droid_slam_tpu_torch.train --datapath datasets/TartanAir \\
       --steps 250000
   python -m droid_slam_tpu_torch.train --synthetic --steps 200
+  python -m torch.distributed.run --nproc_per_node 2 \\
+      -m droid_slam_tpu_torch.train --synthetic --batch 2 --steps 200
 """
 
 import argparse
@@ -43,7 +51,11 @@ def main(argv=None):
                    help="write the final weights as an npz")
     p.add_argument("--lookup_impl", default="level",
                    choices=("level", "level_v2"))
-    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--dist_backend", default=None, choices=("nccl", "gloo"),
+                   help="process-group backend under torch.distributed.run "
+                        "(default: NCCL with a card per rank, else gloo)")
+    p.add_argument("--batch", type=int, default=1,
+                   help="global batch (split across data-parallel ranks)")
     p.add_argument("--steps", type=int, default=250000)
     p.add_argument("--lr", type=float, default=2.5e-4)
     p.add_argument("--clip", type=float, default=2.5)
@@ -68,10 +80,18 @@ def main(argv=None):
     from .config import TrainConfig
     from .models.convert import save_npz_weights
     from .ops import corr
+    from .parallel.launch import data_mesh, initialize_distributed
     from .runtime.slam import resolve_device
     from .training.trainer import train
 
-    device = resolve_device(args.device)
+    device = data_mesh(resolve_device(args.device) if args.device else None)
+    rank, world, backend = initialize_distributed(device,
+                                                  args.dist_backend)
+    if args.batch % world:
+        p.error(f"--batch {args.batch} does not divide by the world size "
+                f"{world}")
+    print(f"training: world size {world}, backend {backend}, rank {rank} "
+          f"on {device}", flush=True)
     cfg = TrainConfig(
         name=args.name, lr=args.lr, steps=args.steps, batch=args.batch,
         iters=args.iters, clip=args.clip, n_frames=args.n_frames,
@@ -106,15 +126,19 @@ def main(argv=None):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     train_s = time.time() - t
-    if args.export_npz:
+    if args.export_npz and rank == 0:
         save_npz_weights(state.net, args.export_npz)
 
-    summary = dict(device=str(device), samples=len(dataset),
+    summary = dict(device=str(device), rank=rank, world_size=world,
+                   backend=backend, samples=len(dataset),
                    dataset_s=dataset_s, train_s=train_s, steps=state.step)
     if device.type == "cuda":
         summary.update(launches=corr.launch_counts(),
                        peak_mem_bytes=torch.cuda.max_memory_allocated(device))
-    print(json.dumps(summary))
+    print(json.dumps(summary), flush=True)
+    if world > 1:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return 0
 
 

@@ -6,6 +6,16 @@ The step is split in two so that random-restart chains can accumulate
 gradients across passes and step the optimizer once: `accum` runs one
 forward/backward and adds its gradients into a running sum, `apply` clips
 the sum and updates the parameters.
+
+Under a process group each rank accumulates over its slice of the global
+batch, and `all_reduce_gradients` sums the ranks' gradients (and
+averages the metrics) once, between the last `accum` and `apply`.  The
+loss is a mean over the batch, and each rank differentiates its slice's
+mean divided by the world size: every element's gradient is then the one
+the whole batch gives it in one process.  That matters beyond a constant
+factor because `grad_clip` (models/layers.py) zeroes gradient elements
+above a fixed magnitude on the way back, so summing or averaging
+gradients taken at another scale would clip other elements.
 """
 
 import dataclasses
@@ -18,6 +28,7 @@ import torch
 from ..geom import losses
 from ..lie import se3
 from ..models.droidnet import DroidNet, random_init
+from ..parallel.launch import world_size
 from ..runtime.slam import resolve_device
 
 WEIGHT_DECAY = 1e-5
@@ -96,6 +107,28 @@ def zero_grads(net):
     return {k: torch.zeros_like(p) for k, p in net.named_parameters()}
 
 
+def all_reduce_gradients(grads, metrics):
+    """Sum the ranks' gradient sums and average their scalar metrics over
+    the default process group, in one all-reduce of one flat buffer;
+    returns them unchanged in a single process.  Every rank then clips
+    and steps on the same gradient, the whole batch's."""
+    import torch.distributed as dist
+
+    world = world_size()
+    if world == 1:
+        return grads, metrics
+    dev = next(iter(grads.values())).device
+    parts = [g.reshape(-1) for g in grads.values()] + [
+        torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(1)
+        / world for v in metrics.values()]
+    flat = torch.cat(parts)
+    dist.all_reduce(flat)
+    out = list(flat.split([p.numel() for p in parts]))
+    grads = {k: out.pop(0).reshape(g.shape) for k, g in grads.items()}
+    metrics = {k: out.pop(0)[0] for k in metrics}
+    return grads, metrics
+
+
 def global_norm(tensors):
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
@@ -151,10 +184,13 @@ def make_train_step(*, iters=15, fix_scale=True, w1=10.0, w2=0.01, w3=0.05,
         """One restart pass: its gradients added into the running sum
         `acc` (in place).  Non-finite gradient elements are zeroed BEFORE
         the sum — otherwise one NaN pass would poison the whole restart
-        chain."""
+        chain.  Under a process group the gradients are those of the
+        slice's loss over the world size (see the module's docstring)."""
         loss, metrics = loss_fn(net, batch, Gs0, disp0)
         names, params = zip(*net.named_parameters())
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        world = world_size()
+        grads = torch.autograd.grad(loss / world if world > 1 else loss,
+                                    params, allow_unused=True)
         bad = 0
         total = 0
         for name, p, g in zip(names, params, grads):

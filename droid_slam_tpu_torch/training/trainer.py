@@ -4,6 +4,12 @@ Per-batch random graph choice (50% flow-covisibility graph, 50% temporal
 |i−j| ≤ 2), first-two-pose anchoring, a random-restart inner loop that
 reuses the last estimates, metrics logging, and periodic checkpoints of
 the full train state (parameters, optimizer, step) with `torch.save`.
+
+Data parallel under a process group (parallel/launch.py): every rank
+draws the same global batches, graphs and restart decisions from the
+same seeds and trains on its slice of each batch; the ranks' gradients
+are summed into the whole batch's before every optimizer step, so all
+ranks keep the same parameters.  Rank 0 alone logs and writes checkpoints.
 """
 
 import os
@@ -16,10 +22,12 @@ from ..config import TrainConfig
 from ..geom.graph_utils import build_frame_graph, temporal_graph
 from ..models.convert import load_weights
 from ..ops import corr as corr_ops
+from ..parallel.launch import local_batch_slice, rank
 from ..runtime.slam import resolve_device
 from .logger import Logger
-from .train_step import (create_train_state, make_optimizer,
-                         make_train_step, pad_edges, zero_grads)
+from .train_step import (all_reduce_gradients, create_train_state,
+                         make_optimizer, make_train_step, pad_edges,
+                         zero_grads)
 
 
 def save_checkpoint(ckpt_dir, state, step):
@@ -80,8 +88,12 @@ def train(cfg: TrainConfig, dataset, device=None, max_steps=None,
     from a checkpoint; `init_npz` warm-starts the parameters from a
     weights file (an .npz, or the reference's droid.pth) with a fresh
     optimizer, `start_step` labelling
-    how far the source run had come.  Returns the final `TrainState`.
+    how far the source run had come.  Under a process group,
+    `cfg.batch` is the global batch and must divide by its size.
+    Returns the final `TrainState`.
     """
+    local = local_batch_slice(cfg.batch)
+    lead = rank() == 0
     device = resolve_device(device)
     # full-f32 matmuls and convolutions (cuDNN would use TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -98,7 +110,7 @@ def train(cfg: TrainConfig, dataset, device=None, max_steps=None,
         state.step = int(start_step or 0)
         print(f"warm-started from {init_npz} at step {state.step} "
               f"(fresh optimizer)", flush=True)
-    logger = Logger(cfg.name, log_dir)
+    logger = Logger(cfg.name, log_dir) if lead else None
 
     # the data and graph randomness derive from (seed, resume step): a
     # resumed run continues the stream instead of replaying its batches
@@ -111,9 +123,9 @@ def train(cfg: TrainConfig, dataset, device=None, max_steps=None,
     # one sample's unrolled activations take about half of an 80 GB card
     # at the default sizes, so larger batches recompute each iteration in
     # the backward pass
-    accum, apply_g = make_train_step(iters=cfg.iters,
-                                     fix_scale=cfg.fix_scale,
-                                     remat=cfg.batch > 1)
+    accum, apply_g = make_train_step(
+        iters=cfg.iters, fix_scale=cfg.fix_scale,
+        remat=local.stop - local.start > 1)
     batches = dataset.sample_batches(
         cfg.batch, rng=np.random.default_rng([seed + 1, start_step]))
     total_steps = start_step
@@ -129,7 +141,8 @@ def train(cfg: TrainConfig, dataset, device=None, max_steps=None,
                     batch_np["intrinsics"], num=cfg.edges, device=device)
             else:
                 ii, jj = temporal_graph(N, r=2)
-            batch = make_batch(batch_np, ii, jj, cap, device)
+            batch = make_batch({k: v[local] for k, v in batch_np.items()},
+                               ii, jj, cap, device)
 
             t0 = time.perf_counter()
             B, N2 = batch["images"].shape[:2]
@@ -148,9 +161,10 @@ def train(cfg: TrainConfig, dataset, device=None, max_steps=None,
                 Gs0 = metrics.pop("_Gs_last")
                 disp0 = metrics.pop("_disp_last")
 
+            grads, metrics = all_reduce_gradients(grads, metrics)
             metrics.update(apply_g(state, grads))
             total_steps += 1
-            if total_steps % log_every == 0 or total_steps == 1:
+            if lead and (total_steps % log_every == 0 or total_steps == 1):
                 m = {k: float(v) for k, v in metrics.items()}
                 m["step_time"] = time.perf_counter() - t0
                 logger.push(m, total_steps)
@@ -162,13 +176,16 @@ def train(cfg: TrainConfig, dataset, device=None, max_steps=None,
                       + (f"nanfrac {nf:.3f} " if nf > 0 else "")
                       + f"({m['step_time']:.2f}s)", flush=True)
 
-            if total_steps % cfg.ckpt_every == 0:
+            if lead and total_steps % cfg.ckpt_every == 0:
                 save_checkpoint(cfg.ckpt_dir, state, total_steps)
 
-        logger.flush(total_steps)
+        if lead:
+            logger.flush(total_steps)
     finally:
-        logger.close()
+        if lead:
+            logger.close()
     final = os.path.join(cfg.ckpt_dir, f"step_{total_steps:06d}.pt")
-    if not os.path.exists(final):   # ckpt_every may have just written it
+    # ckpt_every may have just written it
+    if lead and not os.path.exists(final):
         save_checkpoint(cfg.ckpt_dir, state, total_steps)
     return state

@@ -383,3 +383,116 @@ def test_scatter_repeats_bit_for_bit(dim):
     assert torch.equal(a, b)
     want = torch.zeros_like(a).index_add_(dim, idx, src)
     torch.testing.assert_close(a, want, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_host_frontend_blocks_match_reference():
+    """The host-driven frontend (`fused=False`) on the card launches the
+    serving lookup kernel, and on its own edges, features and poses, in
+    its 512-query blocks (30x40 queries), the kernel equals its plain
+    version and the path's `edge_correlation` equals the kernel's taps
+    (tolerance 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import os.path as osp
+
+    from droid_slam_tpu_torch.config import SLAMConfig
+    from droid_slam_tpu_torch.data.synthetic import render_box_scene
+    from droid_slam_tpu_torch.geom import projective
+    from droid_slam_tpu_torch.runtime.factor_graph import (
+        edge_correlation, target_fmaps)
+    from droid_slam_tpu_torch.runtime.slam import Droid
+    from droid_slam_tpu_torch.runtime.state import pool_pyramid
+
+    weights = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
+                       "weights", "droid_synth.npz")
+    scene = render_box_scene(12, 240, 320, seed=1, motion_scale=0.12)
+    cfg = SLAMConfig(image_size=(240, 320), buffer=32, warmup=5,
+                     filter_thresh=0.0, fused=False, corr_pixel_chunk=512)
+    droid = Droid(cfg, weights_path=weights, device="cuda")
+    tcorr.reset_launch_counts()
+    for k, im in enumerate(scene["images"]):
+        droid.track(float(k), im, intrinsics=scene["intrinsics"][0])
+    assert droid.frontend.is_initialized and droid.frontend.count > 0
+    assert tcorr.launch_counts()["corr_lookup"] > 0
+
+    st = droid.video.state
+    ii, jj = (torch.as_tensor(e, device="cuda")
+              for e in droid.frontend.active_edges())
+    E, HW = len(ii), droid.video.fht * droid.video.fwd
+    coords1 = projective.projective_transform(
+        st.poses[None], st.disps[None], st.intrinsics[None], ii, jj)[0][0]
+    path = edge_correlation(st.fmaps, ii, jj, coords1, 512).reshape(
+        E, HW, -1)
+    f1 = st.fmaps[ii, 0].float().reshape(E, HW, -1) / 4.0
+    f2 = [p.float() / 4.0
+          for p in pool_pyramid(target_fmaps(st.fmaps, ii, jj))]
+    cflat = coords1.reshape(E, HW, 2)
+    for lo in range(0, HW, 512):
+        vols = [torch.bmm(f1[:, lo:lo + 512],
+                          p.reshape(E, -1, p.shape[-1]).transpose(1, 2))
+                .to(torch.bfloat16).reshape((E, -1) + tuple(p.shape[1:3]))
+                for p in f2]
+        c = cflat[:, lo:lo + 512].contiguous()
+        got = tcorr.lookup_pyramid_flat_cuda(vols, c)
+        assert torch.equal(got, tcorr.lookup_pyramid_flat_reference(vols, c))
+        assert torch.equal(path[:, lo:lo + 512], got)
+
+
+@pytest.mark.cuda
+def test_two_shard_ba_on_one_card_matches_single_device():
+    """The distributed BA with two shards on the one card against the
+    single-device BA on the card (tests/test_parallel.py's problem: poses
+    atol 2e-4 / rtol 1e-3, disparities 2e-3 / 2e-2), and two distributed
+    runs bit-equal (the shard sums add in a fixed order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from droid_slam_tpu_torch.geom import projective
+    from droid_slam_tpu_torch.lie import se3
+    from droid_slam_tpu_torch.ops import dba
+    from droid_slam_tpu_torch.parallel import dba as pdba
+
+    rng = np.random.default_rng(0)
+    T, BUF, ht, wd, t0 = 10, 16, 12, 16, 2
+    xs = np.cumsum(0.05 * rng.standard_normal((T, 6)), axis=0)
+    xs[0] = 0
+    poses_gt = se3.exp(torch.zeros((BUF, 6))).cuda()
+    poses_gt[:T] = se3.exp(torch.tensor(xs, dtype=torch.float32)).cuda()
+    disps_gt = torch.tensor(0.6 + 0.25 * rng.random((BUF, ht, wd)),
+                            dtype=torch.float32, device="cuda")
+    intr = torch.tensor([[wd * 1.2, wd * 1.2, wd / 2, ht / 2]] * BUF,
+                        device="cuda")
+    ii, jj = np.meshgrid(np.arange(T), np.arange(T), indexing="ij")
+    keep = (np.abs(ii - jj) >= 1) & (np.abs(ii - jj) <= 3)
+    ii, jj = ii[keep], jj[keep]
+    ii_t = torch.as_tensor(ii, device="cuda")
+    jj_t = torch.as_tensor(jj, device="cuda")
+    target = projective.projective_transform(
+        poses_gt[None], disps_gt[None], intr[None], ii_t, jj_t)[0][0]
+    weight = torch.ones_like(target)
+    noise = 0.02 * rng.standard_normal((BUF, 6))
+    noise[:2] = 0
+    noise[T:] = 0
+    poses0 = se3.retr(poses_gt, torch.tensor(noise, dtype=torch.float32,
+                                             device="cuda"))
+    disps0 = torch.ones_like(disps_gt)
+    sens = torch.zeros_like(disps_gt)
+    eta = torch.full_like(disps_gt, 1e-4)
+    mask = np.ones(len(ii), bool)
+    kw = dict(iters=2, lm=1e-5, ep=1e-2, P=16)
+
+    kx, km = dba.build_schur_tables(ii, mask, t0, T, 16)
+    p1, d1 = dba.ba(poses0, disps0, sens, intr, target, weight, eta, ii_t,
+                    jj_t, torch.as_tensor(mask, device="cuda"),
+                    torch.as_tensor(kx, device="cuda"),
+                    torch.as_tensor(km, device="cuda"), t0, T, **kw)
+    need_e, need_k = pdba.plan_shard_caps(ii, mask, t0, T, 2)
+    shards = pdba.shard_edges_by_frame(ii, jj, mask, 2, need_e, need_k, t0,
+                                       T)
+    runs = [pdba.distributed_ba(poses0, disps0, sens, intr, eta, target,
+                                weight, shards, ["cuda:0", "cuda:0"], t0, T,
+                                **kw) for _ in range(2)]
+    p2, d2 = runs[0]
+    torch.testing.assert_close(p2, p1, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(d2, d1, atol=2e-3, rtol=2e-2)
+    assert torch.equal(runs[1][0], p2) and torch.equal(runs[1][1], d2)

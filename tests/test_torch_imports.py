@@ -119,3 +119,26 @@ def test_train_cli_defaults_to_cuda():
                   "--n_frames", "3", "--image_size", "32", "48"])
     assert r.returncode == 1 and "no CUDA device" in r.stderr, \
         r.stderr[-2000:]
+
+
+def test_new_entry_points_default_to_cuda():
+    """The host-driven frontend's Droid and a data-parallel rank's device
+    need the card unless the CPU is asked for; `prewarm` builds nothing
+    for a CPU Droid."""
+    import torch
+
+    from droid_slam_tpu_torch.config import SLAMConfig
+    from droid_slam_tpu_torch.ops import cuda_build
+    from droid_slam_tpu_torch.parallel.launch import data_mesh
+    from droid_slam_tpu_torch.runtime.slam import Droid
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = SLAMConfig(image_size=(32, 48), buffer=4, fused=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Droid(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        data_mesh()
+    assert data_mesh("cpu") == torch.device("cpu")
+    Droid(cfg, device="cpu").prewarm()
+    assert not cuda_build._libs

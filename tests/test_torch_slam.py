@@ -140,15 +140,16 @@ def test_droid_batch_matches_per_frame(port_run):
 
 
 def test_unported_inputs_raise():
-    """The host-driven frontend is the one part of `Droid` not ported;
-    stereo, upsampling and depth input run (tests/test_torch_stereo.py,
-    tests/test_torch_rgbd.py)."""
+    """No input is left unported: `fused=False` builds the host-driven
+    frontend (tests/test_torch_frontend.py), and stereo, upsampling and
+    depth input run (tests/test_torch_stereo.py, tests/test_torch_rgbd.py)."""
     from droid_slam_tpu_torch.config import SLAMConfig
+    from droid_slam_tpu_torch.runtime.frontend import Frontend
     from droid_slam_tpu_torch.runtime.slam import Droid
 
     small = dict(image_size=(32, 48), buffer=8, compute_dtype="float32")
-    with pytest.raises(NotImplementedError):
-        Droid(SLAMConfig(**small, fused=False), device="cpu")
+    host = Droid(SLAMConfig(**small, fused=False), device="cpu")
+    assert type(host.frontend) is Frontend
     for ok in (dict(stereo=True), dict(upsample=True)):
         d = Droid(SLAMConfig(**small, **ok), device="cpu")
         assert d.video.state.fmaps.shape[1] == (2 if ok.get("stereo") else 1)
