@@ -1,0 +1,8 @@
+"""Share (%) of the traced tracking window in which no operation ran on the
+device."""
+
+from benchmark.lib.readers import idle_percent
+
+
+def read(rec):
+    return idle_percent(rec)
