@@ -1,0 +1,8 @@
+"""Share (%) of the traced training window the host spent inside the
+program's sync sites (spans `sync.*`, host clock)."""
+
+from benchmark.lib.program_trace import span_ns, window_percent
+
+
+def read(rec):
+    return window_percent(rec, span_ns(prefix="sync."))

@@ -35,9 +35,9 @@
       (the host-driven factor graph drives every keyframe step), twice,
       each after `Droid.prewarm()`; raises unless the two trajectories
       are bit-equal.  Prints the keyframes beside the fused main path's,
-      the host-clock phase timers of the second run's tracking (warm ms
-      per phase; the card is not synchronized, so a phase is launch and
-      host-read time), and holds the lookup kernel against its plain
+      the tracer's host-clock spans of the second run's tracking (warm ms
+      per span; the card is not synchronized, so a span is launch and
+      host-wait time), and holds the lookup kernel against its plain
       version on that run's frontend edges (as in d).  Then serves that
       run's map with the live viewer on an ephemeral port of 127.0.0.1,
       fetches `/` and `/map.bin`, and raises unless the map parses, has a
@@ -861,7 +861,7 @@ def host_frontend_phase(corr, scene, main):
     """The mono cell under `SLAMConfig(fused=False)`, the host-driven
     frontend, twice, each after `prewarm()`: raises unless the two
     trajectories are bit-equal (and what `serving_phase` requires).
-    Reads the host-clock phase timers of the second run's tracking,
+    Reads the tracer's host-clock spans of the second run's tracking,
     holds the lookup kernel against its plain version on that run's
     frontend edges, then serves that run's map with the live viewer and
     raises unless /map.bin parses, has a camera per keyframe and equals
@@ -873,18 +873,20 @@ def host_frontend_phase(corr, scene, main):
     from droid_slam_tpu_torch.runtime.viewer import (decode_map,
                                                      map_snapshot,
                                                      start_viewer)
-    from droid_slam_tpu_torch.utils.timers import GLOBAL_TIMERS
+    from droid_slam_tpu_torch.utils import timers
 
     cfg = SLAMConfig(fused=False)
     seen = {}
 
     def before_stream(droid):
         droid.prewarm()
-        GLOBAL_TIMERS.reset()
+        timers.reset()
+        timers.enable()
 
     def before_terminate(droid):
         seen.update(edges=droid.frontend.active_edges(),
-                    timers=GLOBAL_TIMERS.summary())
+                    timers=timers.summary())
+        timers.enable(False)
 
     runs = [serving_phase(corr, "host frontend path", cfg, scene,
                           before_stream=before_stream,

@@ -10,6 +10,7 @@ import torch
 
 from ..geom import projective
 from ..lie import se3
+from ..utils.timers import sync_site
 
 
 def parse_list(filepath, skiprows=0):
@@ -52,8 +53,9 @@ def compute_distance_matrix_flow(poses, disps, intrinsics, chunk=2048,
     pixels are valid).
     """
     def dev(x):
-        return torch.as_tensor(np.asarray(x), dtype=torch.float32,
-                               device=device)
+        with sync_site("h2d.graph"):
+            return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                   device=device)
 
     poses_t = se3.inv(dev(poses))[None]
     disps_t = dev(disps)[None]
@@ -66,8 +68,9 @@ def compute_distance_matrix_flow(poses, disps, intrinsics, chunk=2048,
 
     matrix = np.zeros((N, N), np.float32)
     for s in range(0, len(ii), chunk):
-        iis = torch.as_tensor(ii[s:s + chunk], device=device)
-        jjs = torch.as_tensor(jj[s:s + chunk], device=device)
+        with sync_site("h2d.graph", 2):
+            iis = torch.as_tensor(ii[s:s + chunk], device=device)
+            jjs = torch.as_tensor(jj[s:s + chunk], device=device)
         flow1, val1 = projective.induced_flow(poses_t, disps_t, intr_t, iis,
                                               jjs)
         flow2, val2 = projective.induced_flow(poses_t, disps_t, intr_t, jjs,
@@ -82,7 +85,8 @@ def compute_distance_matrix_flow(poses, disps, intrinsics, chunk=2048,
         vmean = valf.mean(-1)
         m = (mag * valf).mean(-1) / vmean.clamp(min=1e-8)
         m = torch.where(vmean < 0.7, torch.full_like(m, float("inf")), m)
-        matrix[ii[s:s + chunk], jj[s:s + chunk]] = m.cpu().numpy()
+        with sync_site("graph.cpu"):
+            matrix[ii[s:s + chunk], jj[s:s + chunk]] = m.cpu().numpy()
 
     return matrix
 

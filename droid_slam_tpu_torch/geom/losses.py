@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..lie import se3, sim3, so3
+from ..utils.timers import sync_site
 from . import projective
 
 
@@ -123,10 +124,11 @@ def flow_loss(Ps, disps, poses_list, disps_list, intrinsics, gamma=0.9):
     N = Ps.shape[1]
     pairs = [(i, j) for i in range(N) for j in (i - 1, i + 1)
              if 0 <= j < N]
-    ii = torch.as_tensor(np.asarray([p[0] for p in pairs]),
-                         device=Ps.device).long()
-    jj = torch.as_tensor(np.asarray([p[1] for p in pairs]),
-                         device=Ps.device).long()
+    with sync_site("h2d.pairs", 2):
+        ii = torch.as_tensor(np.asarray([p[0] for p in pairs]),
+                             device=Ps.device).long()
+        jj = torch.as_tensor(np.asarray([p[1] for p in pairs]),
+                             device=Ps.device).long()
 
     coords0, val0 = projective.projective_transform(Ps, disps, intrinsics,
                                                     ii, jj)

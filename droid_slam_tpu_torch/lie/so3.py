@@ -7,6 +7,8 @@ operands, as in the JAX package.
 
 import torch
 
+from ..utils.timers import sync_site
+
 _EPS = 1e-8
 
 
@@ -34,7 +36,9 @@ def mul(q1, q2):
 
 def inv(q):
     """Inverse of a unit quaternion (conjugate)."""
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    with sync_site("h2d.const"):
+        conj = q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    return q * conj
 
 
 def cross(a, b):

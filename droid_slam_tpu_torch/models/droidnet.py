@@ -13,6 +13,7 @@ from torch.utils.checkpoint import checkpoint
 from ..geom import ba as geom_ba
 from ..geom import projective
 from ..ops import corr as corr_ops
+from ..utils.timers import sync_site
 from .extractor import BasicEncoder
 from .update import UpdateModule, upsample_disp
 
@@ -23,8 +24,9 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 def normalize_images(images):
     """(..., H, W, 3) RGB in [0,255] -> ImageNet-normalized float32."""
     x = images.float() / 255.0
-    mean = x.new_tensor(IMAGENET_MEAN)
-    std = x.new_tensor(IMAGENET_STD)
+    with sync_site("h2d.const", 2):
+        mean = x.new_tensor(IMAGENET_MEAN)
+        std = x.new_tensor(IMAGENET_STD)
     return (x - mean) / std
 
 

@@ -16,6 +16,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops import scatter
+from ..utils.timers import sync_site
 from .gru import ConvGRU
 from .layers import conv, grad_clip, to_nchw, to_nhwc
 
@@ -26,11 +27,17 @@ def segment_mean(x, ix, nseg):
     """Mean of x (E, ...) over segment ids ix (E,); ids >= nseg are
     dropped.  Sums in float32, result in x's dtype.  Returns (nseg, ...)."""
     keep = ix < nseg
-    idx = ix[keep]
+    with sync_site("graphagg.mask"):
+        idx = ix[keep]
     tot = torch.zeros((nseg,) + x.shape[1:], device=x.device,
                       dtype=torch.float32)
-    scatter.index_add_(tot, 0, idx, x[keep].float())
-    cnt = torch.bincount(idx, minlength=nseg).clamp(min=1).float()
+    with sync_site("graphagg.mask"):
+        kept = x[keep]
+    scatter.index_add_(tot, 0, idx, kept.float())
+    # bincount reads the index's least and largest value back: two waits
+    with sync_site("graphagg.bincount", 2):
+        cnt = torch.bincount(idx, minlength=nseg)
+    cnt = cnt.clamp(min=1).float()
     return (tot / cnt.reshape((-1,) + (1,) * (x.ndim - 1))).to(x.dtype)
 
 

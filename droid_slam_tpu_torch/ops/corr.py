@@ -43,6 +43,8 @@ import ctypes
 import torch
 from torch.nn import functional as F
 
+from ..utils.timers import sync_site
+
 NUM_LEVELS = 4
 RADIUS = 3
 
@@ -686,8 +688,9 @@ def gate_corr_pyramid(pyr1_l0, fmap2_pyramid, radius=RADIUS):
         fy = (torch.remainder(ey, s).float() / s)
         ix = torch.div(ex, s, rounding_mode="floor") + r
         fx = (torch.remainder(ex, s).float() / s)
-        py = int(iy.max()) + 2 - r - h2
-        px = int(ix.max()) + 2 - r - w2
+        with sync_site("gate_corr.max", 2):
+            py = int(iy.max()) + 2 - r - h2
+            px = int(ix.max()) + 2 - r - w2
         # pad order for F.pad: (C lo, C hi, W lo, W hi, H lo, H hi)
         f2p = F.pad(f2, (0, 0, r, max(px, 1), r, max(py, 1)))
         ry = (f2p[:, iy] * (1 - fy)[None, :, None, None]

@@ -30,6 +30,7 @@ import torch
 
 from ..geom import projective
 from ..lie import se3
+from ..utils.timers import sync_site
 from . import scatter
 
 ALPHA = 0.05          # RGB-D prior strength
@@ -114,7 +115,8 @@ def edge_problem(ii, jj, edge_mask, target, weight, kx, kmask, disps_sens,
     HW = disps_sens.shape[1] * disps_sens.shape[2]
     K = kx.shape[0]
 
-    sel = torch.nonzero(edge_mask).squeeze(1)
+    with sync_site("ba.edges"):
+        sel = torch.nonzero(edge_mask).squeeze(1)
     ii, jj = ii[sel].long(), jj[sel].long()
     pi, pj = _slot(ii - t0, P), _slot(jj - t0, P)
     pe = torch.stack([pi, pj], dim=1)                       # (E, 2)
@@ -124,7 +126,8 @@ def edge_problem(ii, jj, edge_mask, target, weight, kx, kmask, disps_sens,
     ar = torch.arange(K, device=dev)
     slot_of[torch.where(kmask, kx, torch.full_like(kx, buf))] = torch.where(
         kmask, ar, torch.full_like(ar, K))
-    slot_of[buf] = K
+    with sync_site("h2d.const"):
+        slot_of[buf] = K
     dsk = disps_sens[kx].reshape(K, HW)
     return dict(
         ii=ii, jj=jj, target=target[sel].float(), weight=weight[sel].float(),
@@ -176,9 +179,10 @@ def pose_system(prob, poses, disps, intrinsics, motion_only=False):
     tk = torch.cat([prob["ar"], ks])                        # K = none
     tp = torch.cat([prob["ps"], prob["pj"]])                # P = fixed
     live = (tk < K) & (tp < P)
-    pa, pb = torch.nonzero(
-        (tk[:, None] == tk[None, :]) & live[:, None] & live[None, :],
-        as_tuple=True)
+    with sync_site("ba.pairs"):
+        pa, pb = torch.nonzero(
+            (tk[:, None] == tk[None, :]) & live[:, None] & live[None, :],
+            as_tuple=True)
     tkq = tk.clamp(max=K - 1)     # dead terms: any row, masked
     BQ = B * Q[tkq][:, None, :]
     chunk = max(256, int(2e8 // (6 * HW * 4 * 2)))

@@ -25,7 +25,7 @@ from ..geom import projective
 from ..models.update import upsample_disp
 from ..ops import corr as corr_ops
 from ..utils.mem import log_mem
-from ..utils.timers import GLOBAL_TIMERS as _T
+from ..utils.timers import span, sync_site
 from .proximity import select_proximity_edges
 from .state import pool_pyramid
 
@@ -45,7 +45,8 @@ def corr_pixel_chunk(cfg, edge_chunk, hw):
 
 def segment_ids(ii):
     """Per-source-frame GraphAgg segments of an edge list: (ix, frames)."""
-    frames, ix = torch.unique(ii, return_inverse=True)
+    with sync_site("segments.unique"):
+        frames, ix = torch.unique(ii, return_inverse=True)
     return ix, frames
 
 
@@ -292,11 +293,11 @@ class FactorGraph:
         """One update-operator + BA round."""
         if self.n == 0:
             return
-        with _T.phase("graph.update_core"):
+        with span("graph.update_op"):
             self._run_update_op()
         if t0 is None:
             t0 = max(1, int(self.ii.min()) + 1)
-        with _T.phase("graph.ba"):
+        with span("graph.ba"):
             self._ba(t0, t1, itrs, use_inactive, motion_only)
         self.age += 1
 
@@ -306,13 +307,13 @@ class FactorGraph:
         for step in range(steps):
             if self.n == 0:
                 return
-            with _T.phase("graph.update_core"):
+            with span("graph.update_op"):
                 self._run_update_op()
             if step == 0:
                 log_mem("update_lowmem: first update sweep", self.dev)
             eta = 0.2 * self.video.state.damping + DAMPING_EPS
             ii, jj, mask = self._edge_arrays()
-            with _T.phase("graph.ba"):
+            with span("graph.ba"):
                 if self.ba_fn is not None:
                     self.ba_fn(self.target, self.weight, eta, ii, jj, mask,
                                1, t)
@@ -369,10 +370,11 @@ class FactorGraph:
         if len(ix) == 0 or len(jx) == 0:
             return
         ii_g, jj_g = np.meshgrid(ix, jx, indexing="ij")
-        with _T.phase("proximity.distance"):
+        with span("graph.distance"):
             d = self.video.distance(ii_g.reshape(-1), jj_g.reshape(-1),
                                     beta=beta, bidirectional=False)
-            d = d.cpu().numpy().reshape(len(ix), len(jx))
+            with sync_site("proximity.cpu"):
+                d = d.cpu().numpy().reshape(len(ix), len(jx))
         max_f = self.max_factors if self.max_factors > 0 else 1 << 40
         ii_sel, jj_sel = select_proximity_edges(
             d, t0, t1, t,
@@ -380,5 +382,5 @@ class FactorGraph:
             np.concatenate([self.jj, self.jj_inac]),
             rad, nms, thresh, max_f, self.cfg.stereo)
         if len(ii_sel):
-            with _T.phase("proximity.add_factors"):
+            with span("graph.insert"):
                 self.add_factors(ii_sel, jj_sel, remove)

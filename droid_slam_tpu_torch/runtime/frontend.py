@@ -13,7 +13,7 @@ distance (`rm_keyframe`) or run `iters2` more rounds, and extrapolate.
 
 import torch
 
-from ..utils.timers import GLOBAL_TIMERS as _T
+from ..utils.timers import span, sync_site
 from .factor_graph import FactorGraph
 from .fused import extrapolate
 
@@ -50,10 +50,10 @@ class Frontend:
         self.t1 += 1
 
         if graph.n > 0:
-            with _T.phase("frontend.rm_stale"):
+            with span("frontend.retire"):
                 graph.rm_factors(graph.age > cfg.max_age, store=True)
 
-        with _T.phase("frontend.proximity"):
+        with span("frontend.proximity"):
             graph.add_proximity_factors(
                 self.t1 - 5, max(self.t1 - cfg.frontend_window, 0),
                 rad=cfg.frontend_radius, nms=cfg.frontend_nms,
@@ -69,10 +69,11 @@ class Frontend:
             graph.update(None, None, use_inactive=True)
 
         # the cull decision is a host read: it waits for the rounds
-        with _T.phase("frontend.cull_check"):
+        with span("frontend.cull"):
             d = self.video.distance([self.t1 - 3], [self.t1 - 2],
                                     beta=cfg.beta, bidirectional=True)
-            d = float(d[0].item())
+            with sync_site("cull.item"):
+                d = float(d[0].item())
 
         if d < cfg.keyframe_thresh:
             graph.rm_keyframe(self.t1 - 2)

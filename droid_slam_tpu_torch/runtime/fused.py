@@ -31,6 +31,7 @@ from ..models.droidnet import normalize_images
 from ..models.update import upsample_disp
 from ..ops import corr as corr_ops
 from ..ops import dba, distance
+from ..utils.timers import span, sync_site
 from .factor_graph import DAMPING_EPS, corr_pixel_chunk, edge_correlation
 from .factor_graph import segment_ids, target_fmaps
 from .motion_filter import as_image_batch
@@ -104,7 +105,13 @@ def fused_caps(cfg):
 
 
 def _rows(idx, device):
-    return torch.as_tensor(np.asarray(idx, np.int64), device=device)
+    with sync_site("h2d.rows"):
+        return torch.as_tensor(np.asarray(idx, np.int64), device=device)
+
+
+def _mask(mask, device):
+    with sync_site("h2d.mask"):
+        return torch.as_tensor(mask, device=device)
 
 
 def retire(g, mask):
@@ -172,7 +179,8 @@ def insert_candidates(g, video, cand_i, cand_j, *, max_factors):
     tgt, _ = video.reproject(ci_t, cj_t)
     g.net[s] = video.state.nets[ci_t].float()
     g.target[s] = tgt
-    g.weight[s] = 0.0
+    with sync_site("h2d.const"):
+        g.weight[s] = 0.0
     return g
 
 
@@ -251,23 +259,25 @@ class KeyframeStep:
         motn = torch.clamp(torch.cat(
             [coords1 - coords0, g.target[a] - coords1], dim=-1),
             -64.0, 64.0)
-        if vols is not None:
-            corr = corr_ops.lookup_pyramid_flat(
-                vols, coords1.reshape(len(act), ht * wd, 2)
-            ).reshape(len(act), ht, wd, -1)
-        else:
-            corr = edge_correlation(
-                st.fmaps, ii_a, jj_a, coords1,
-                corr_pixel_chunk(cfg, self.EA, ht * wd))
+        with span("round.corr"):
+            if vols is not None:
+                corr = corr_ops.lookup_pyramid_flat(
+                    vols, coords1.reshape(len(act), ht * wd, 2)
+                ).reshape(len(act), ht, wd, -1)
+            else:
+                corr = edge_correlation(
+                    st.fmaps, ii_a, jj_a, coords1,
+                    corr_pixel_chunk(cfg, self.EA, ht * wd))
         ix, frames = segment_ids(ii_a)
-        out = self.net.update(
-            g.net[a], st.inps[ii_a], corr, motn, ix=ix,
-            nseg=len(frames), with_upmask=cfg.upsample)
-        net_new, delta, weight, eta = out[:4]
-        g.net[a] = net_new.float()
-        g.target[a] = coords1 + delta
-        g.weight[a] = weight
-        st.damping[frames] = eta
+        with span("round.update_op"):
+            out = self.net.update(
+                g.net[a], st.inps[ii_a], corr, motn, ix=ix,
+                nseg=len(frames), with_upmask=cfg.upsample)
+            net_new, delta, weight, eta = out[:4]
+            g.net[a] = net_new.float()
+            g.target[a] = coords1 + delta
+            g.weight[a] = weight
+            st.damping[frames] = eta
         return frames, (out[4] if cfg.upsample else None)
 
     def update_round(self, g, vols=None):
@@ -275,39 +285,43 @@ class KeyframeStep:
         active ∪ recent-inactive edges; under `upsample`, the solved
         disparities of the updated frames go through the convex
         upsampling into `disps_up`."""
-        cfg, video = self.cfg, self.video
-        st = video.state
-        buf = cfg.buffer
-        dev = video.device
-        act = np.nonzero(g.active)[0]
-        if len(act):
-            frames, upmask = self.update_op(g, act, vols)
+        with span("keyframe.round"):
+            cfg, video = self.cfg, self.video
+            st = video.state
+            buf = cfg.buffer
+            dev = video.device
+            act = np.nonzero(g.active)[0]
+            if len(act):
+                frames, upmask = self.update_op(g, act, vols)
 
-        # dense BA over active ∪ recent-inactive edges
-        ii_act, jj_act = g.ii[act], g.jj[act]
-        t0 = max(1, (int(ii_act.min()) if len(act) else buf + 1) + 1)
-        t1b = (int(np.maximum(ii_act, jj_act).max()) if len(act) else -1) + 1
-        recent = (g.ii >= t0 - 3) & (g.jj >= t0 - 3)
-        mask_ba = g.exist() & recent
-        mask_ba[: g.EA] = g.active
-        kx, kmask = build_kx(g.ii, mask_ba, t0, t1b, buf, self.K)
-        eta = 0.2 * st.damping + DAMPING_EPS
-        poses, disps = dba.ba(
-            st.poses, st.disps, st.disps_sens, st.intrinsics, g.target,
-            g.weight, eta, _rows(g.ii, dev), _rows(g.jj, dev),
-            torch.as_tensor(mask_ba, device=dev), _rows(kx, dev),
-            torch.as_tensor(kmask, device=dev), t0, t1b,
-            iters=cfg.ba_iters, lm=cfg.frontend_lm, ep=cfg.frontend_ep,
-            P=self.P)
-        # divergence guard: revert the whole round on non-finite output
-        ok = torch.isfinite(poses.sum()) & torch.isfinite(disps.sum())
-        st.poses.copy_(torch.where(ok, poses, st.poses))
-        st.disps.copy_(torch.where(ok, disps, st.disps))
-        g.age = np.where(g.active, g.age + 1, g.age)
-        if len(act) and cfg.upsample:
-            st.disps_up[frames] = upsample_disp(st.disps[frames],
-                                                upmask.float())
-        return g
+            # dense BA over active ∪ recent-inactive edges
+            ii_act, jj_act = g.ii[act], g.jj[act]
+            t0 = max(1, (int(ii_act.min()) if len(act) else buf + 1) + 1)
+            t1b = (int(np.maximum(ii_act, jj_act).max()) if len(act)
+                   else -1) + 1
+            recent = (g.ii >= t0 - 3) & (g.jj >= t0 - 3)
+            mask_ba = g.exist() & recent
+            mask_ba[: g.EA] = g.active
+            kx, kmask = build_kx(g.ii, mask_ba, t0, t1b, buf, self.K)
+            eta = 0.2 * st.damping + DAMPING_EPS
+            with span("round.ba"):
+                poses, disps = dba.ba(
+                    st.poses, st.disps, st.disps_sens, st.intrinsics,
+                    g.target, g.weight, eta, _rows(g.ii, dev),
+                    _rows(g.jj, dev), _mask(mask_ba, dev), _rows(kx, dev),
+                    _mask(kmask, dev), t0, t1b, iters=cfg.ba_iters,
+                    lm=cfg.frontend_lm, ep=cfg.frontend_ep, P=self.P)
+                # divergence guard: revert the whole round on non-finite
+                # output
+                ok = (torch.isfinite(poses.sum())
+                      & torch.isfinite(disps.sum()))
+                st.poses.copy_(torch.where(ok, poses, st.poses))
+                st.disps.copy_(torch.where(ok, disps, st.disps))
+            g.age = np.where(g.active, g.age + 1, g.age)
+            if len(act) and cfg.upsample:
+                st.disps_up[frames] = upsample_disp(st.disps[frames],
+                                                    upmask.float())
+            return g
 
     def select_candidates(self, g, t1):
         """Proximity candidates for the new keyframe t1-1."""
@@ -324,7 +338,8 @@ class KeyframeStep:
                 st.poses, st.disps, st.intrinsics[0],
                 _rows(gi.reshape(-1), dev), _rows(gj.reshape(-1), dev),
                 cfg.beta)
-            d[rows[0] - t0p:] = dd.cpu().numpy().reshape(gi.shape)
+            with sync_site("proximity.cpu"):
+                d[rows[0] - t0p:] = dd.cpu().numpy().reshape(gi.shape)
         exist = g.exist()
         return select_proximity_edges(
             d, t0p, t1p, t1, g.ii[exist], g.jj[exist],
@@ -337,12 +352,15 @@ class KeyframeStep:
         st = video.state
 
         # 1. retire stale edges (archived in the ring)
-        g = retire(g, g.active & (g.age > cfg.max_age))
+        with span("keyframe.retire"):
+            g = retire(g, g.active & (g.age > cfg.max_age))
 
         # 2. proximity edges
-        ci, cj = self.select_candidates(g, t1)
-        g = insert_candidates(g, video, ci, cj,
-                              max_factors=cfg.frontend_max_factors)
+        with span("keyframe.proximity"):
+            ci, cj = self.select_candidates(g, t1)
+        with span("keyframe.insert"):
+            g = insert_candidates(g, video, ci, cj,
+                                  max_factors=cfg.frontend_max_factors)
 
         # 3. seed the new keyframe's disparity from sensor depth
         ds = st.disps_sens[t1 - 1]
@@ -352,31 +370,35 @@ class KeyframeStep:
         # rest of the step, so the volume pyramid is built once
         vols = None
         if self.cache_vols and g.active.any():
-            act = np.nonzero(g.active)[0]
-            vols = edge_volumes(st.fmaps, _rows(g.ii[act], video.device),
-                                _rows(g.jj[act], video.device))
+            with span("keyframe.volumes"):
+                act = np.nonzero(g.active)[0]
+                vols = edge_volumes(st.fmaps,
+                                    _rows(g.ii[act], video.device),
+                                    _rows(g.jj[act], video.device))
         for _ in range(cfg.frontend_iters1):
             g = self.update_round(g, vols)
         del vols
 
         # 5. keyframe cull check
-        dev = video.device
-        dc = distance.frame_distance(
-            st.poses, st.disps, st.intrinsics[0],
-            _rows([t1 - 3, t1 - 2], dev), _rows([t1 - 2, t1 - 3], dev),
-            cfg.beta)
-        cull = bool((0.5 * (dc[0] + dc[1]) < cfg.keyframe_thresh).item())
-
-        if cull:
-            ix = t1 - 2
-            video.copy_slot(ix, ix + 1)
-            touch = g.exist() & ((g.ii == ix) | (g.jj == ix))
-            g.ii = np.where(g.ii >= ix, g.ii - 1, g.ii)
-            g.jj = np.where(g.jj >= ix, g.jj - 1, g.jj)
-            g.active = g.active & ~touch[: g.EA]
-            g.inac = g.inac & ~touch[g.EA:]
-            extrapolate(st, t1 - 1)
-        else:
+        with span("keyframe.cull"):
+            dev = video.device
+            dc = distance.frame_distance(
+                st.poses, st.disps, st.intrinsics[0],
+                _rows([t1 - 3, t1 - 2], dev), _rows([t1 - 2, t1 - 3], dev),
+                cfg.beta)
+            with sync_site("cull.item"):
+                cull = bool((0.5 * (dc[0] + dc[1])
+                             < cfg.keyframe_thresh).item())
+            if cull:
+                ix = t1 - 2
+                video.copy_slot(ix, ix + 1)
+                touch = g.exist() & ((g.ii == ix) | (g.jj == ix))
+                g.ii = np.where(g.ii >= ix, g.ii - 1, g.ii)
+                g.jj = np.where(g.jj >= ix, g.jj - 1, g.jj)
+                g.active = g.active & ~touch[: g.EA]
+                g.inac = g.inac & ~touch[g.EA:]
+                extrapolate(st, t1 - 1)
+        if not cull:
             for _ in range(cfg.frontend_iters2):
                 g = self.update_round(g)
             extrapolate(st, t1)
@@ -425,49 +447,59 @@ class FusedFrontend:
         right] for stereo; depth: optional (H, W) metric sensor depth.
         fmap/ctx: precomputed features (batch mode).  Returns True when
         the frame became a keyframe."""
-        cfg, video = self.cfg, self.video
-        st = video.state
-        image = as_image_batch(image, video.device)
-        x = normalize_images(image)
-        if fmap is None:
-            fmap = self.net.fnet(x)
-        c = video.counter
-        if c >= cfg.buffer - 1:
-            raise RuntimeError(
-                f"keyframe buffer nearly full ({c}/{cfg.buffer}); increase "
-                f"SLAMConfig.buffer for this sequence")
+        with span("track.frame"):
+            cfg, video = self.cfg, self.video
+            st = video.state
+            with span("track.encode"):
+                image = as_image_batch(image, video.device)
+                x = normalize_images(image)
+                if fmap is None:
+                    fmap = self.net.fnet(x)
+            c = video.counter
+            if c >= cfg.buffer - 1:
+                raise RuntimeError(
+                    f"keyframe buffer nearly full ({c}/{cfg.buffer}); "
+                    f"increase SLAMConfig.buffer for this sequence")
 
-        # motion gate: window correlation at the identity grid + one
-        # update step vs the last keyframe
-        f1 = st.fmaps[c - 1, 0:1].float() / 4.0
-        f2_pyr = pool_pyramid(fmap[0:1].float() / 4.0)
-        corr = corr_ops.gate_corr_pyramid(f1, f2_pyr)
-        _, delta, _ = self.net.update(st.nets[c - 1][None],
-                                      st.inps[c - 1][None], corr)
-        dmag = torch.mean(torch.linalg.norm(delta, dim=-1))
-        if not bool((dmag > self.filter_thresh).item()):
-            return False
+            # motion gate: window correlation at the identity grid + one
+            # update step vs the last keyframe
+            with span("track.gate"):
+                f1 = st.fmaps[c - 1, 0:1].float() / 4.0
+                f2_pyr = pool_pyramid(fmap[0:1].float() / 4.0)
+                corr = corr_ops.gate_corr_pyramid(f1, f2_pyr)
+                _, delta, _ = self.net.update(st.nets[c - 1][None],
+                                              st.inps[c - 1][None], corr)
+                dmag = torch.mean(torch.linalg.norm(delta, dim=-1))
+                with sync_site("gate.item"):
+                    keep = bool((dmag > self.filter_thresh).item())
+            if not keep:
+                return False
 
-        if ctx is None:
-            netc, inpc = self.net.context(x[0:1])
-            netc, inpc = netc[0], inpc[0]
-        else:
-            netc, inpc = ctx
-        st.tstamp[c] = float(tstamp)
-        st.disps_sens[c] = torch.as_tensor(
-            disp_from_depth(depth, (video.fht, video.fwd)))
-        st.intrinsics[c] = torch.as_tensor(intrinsics,
-                                           dtype=torch.float32) / 8.0
-        st.fmaps[c] = fmap.to(torch.bfloat16)
-        st.nets[c] = netc.to(st.nets.dtype)
-        st.inps[c] = inpc.to(st.inps.dtype)
-        st.colors[c] = keyframe_colors(image)
-        video.counter = c + 1
-        self.t1 += 1
-        self.g, cull = self.step(self.g, self.t1)
-        video.counter -= cull
-        self.t1 -= cull
-        return True
+            with span("track.context"):
+                if ctx is None:
+                    netc, inpc = self.net.context(x[0:1])
+                    netc, inpc = netc[0], inpc[0]
+                else:
+                    netc, inpc = ctx
+                with sync_site("h2d.const"):
+                    st.tstamp[c] = float(tstamp)
+                with sync_site("h2d.disps_sens"):
+                    st.disps_sens[c] = torch.as_tensor(
+                        disp_from_depth(depth, (video.fht, video.fwd)))
+                with sync_site("h2d.intrinsics"):
+                    st.intrinsics[c] = torch.as_tensor(
+                        intrinsics, dtype=torch.float32) / 8.0
+                st.fmaps[c] = fmap.to(torch.bfloat16)
+                st.nets[c] = netc.to(st.nets.dtype)
+                st.inps[c] = inpc.to(st.inps.dtype)
+                st.colors[c] = keyframe_colors(image)
+            video.counter = c + 1
+            self.t1 += 1
+            with span("keyframe.step"):
+                self.g, cull = self.step(self.g, self.t1)
+            video.counter -= cull
+            self.t1 -= cull
+            return True
 
     @torch.no_grad()
     def track_frames(self, tstamps, images, intrinsics=None):

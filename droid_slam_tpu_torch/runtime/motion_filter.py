@@ -14,14 +14,15 @@ import torch
 from ..geom import projective
 from ..models.droidnet import normalize_images
 from ..ops import corr as corr_ops
-from ..utils.timers import GLOBAL_TIMERS as _T
+from ..utils.timers import span, sync_site
 
 
 def as_image_batch(image, device):
     """(H, W, 3) or (rig, H, W, 3) uint8 image(s) -> (rig, H, W, 3)
     contiguous tensor on `device` (the network's result must not depend
     on the memory layout of the caller's array)."""
-    image = torch.as_tensor(image).to(device).contiguous()
+    with sync_site("h2d.image"):
+        image = torch.as_tensor(image).to(device).contiguous()
     return image[None] if image.ndim == 3 else image
 
 
@@ -63,7 +64,7 @@ class MotionFilter:
     def track(self, tstamp, image, depth=None, intrinsics=None):
         """Returns True when the frame became a keyframe."""
         image = as_image_batch(image, self.video.device)
-        with _T.phase("filter.encode"):
+        with span("filter.encode"):
             fmap = self.encode(image)
         intr8 = torch.as_tensor(intrinsics, dtype=torch.float32) / 8.0
 
@@ -71,9 +72,10 @@ class MotionFilter:
             pose = torch.tensor([0, 0, 0, 0, 0, 0, 1.0])
         else:
             # the gate is a host read: it waits for the encoder too
-            with _T.phase("filter.delta"):
-                d = float(self.delta(self.fmap[0], fmap[0], self.knet,
-                                     self.kinp))
+            with span("filter.gate"):
+                d = self.delta(self.fmap[0], fmap[0], self.knet, self.kinp)
+                with sync_site("filter.item"):
+                    d = float(d)
             if not d > self.thresh:
                 return False
             pose = None

@@ -24,6 +24,7 @@ from ..models.convert import load_weights
 from ..ops import corr as corr_ops
 from ..parallel.launch import local_batch_slice, rank
 from ..runtime.slam import resolve_device
+from ..utils.timers import span, sync_site
 from .logger import Logger
 from .train_step import (all_reduce_gradients, create_train_state,
                          make_optimizer, make_train_step, pad_edges,
@@ -65,8 +66,9 @@ def make_batch(batch_np, ii, jj, cap, device):
     h8, w8 = disps.shape[2] // 8, disps.shape[3] // 8
 
     def dev(x, dtype=torch.float32):
-        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
-                               device=device)
+        with sync_site("h2d.batch"):
+            return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                                   device=device)
 
     return dict(
         images=dev(batch_np["images"]), poses=dev(batch_np["poses"]),
@@ -132,17 +134,22 @@ def train(cfg: TrainConfig, dataset, device=None, max_steps=None,
 
     try:
         while total_steps < max_steps:
-            batch_np = next(batches)
+            with span("train.draw"):
+                batch_np = next(batches)
 
             # randomize the frame graph per batch
-            if rng.random() < 0.5:
-                ii, jj = build_frame_graph(
-                    batch_np["poses"], batch_np["disps"],
-                    batch_np["intrinsics"], num=cfg.edges, device=device)
-            else:
-                ii, jj = temporal_graph(N, r=2)
-            batch = make_batch({k: v[local] for k, v in batch_np.items()},
-                               ii, jj, cap, device)
+            with span("train.graph"):
+                if rng.random() < 0.5:
+                    ii, jj = build_frame_graph(
+                        batch_np["poses"], batch_np["disps"],
+                        batch_np["intrinsics"], num=cfg.edges,
+                        device=device)
+                else:
+                    ii, jj = temporal_graph(N, r=2)
+            with span("train.batch"):
+                batch = make_batch({k: v[local]
+                                    for k, v in batch_np.items()},
+                                   ii, jj, cap, device)
 
             t0 = time.perf_counter()
             B, N2 = batch["images"].shape[:2]
@@ -157,24 +164,29 @@ def train(cfg: TrainConfig, dataset, device=None, max_steps=None,
             r = 0.0
             while r < cfg.restart_prob:
                 r = rng.random()
-                grads, metrics = accum(grads, state.net, batch, Gs0, disp0)
+                with span("train.pass"):
+                    grads, metrics = accum(grads, state.net, batch, Gs0,
+                                           disp0)
                 Gs0 = metrics.pop("_Gs_last")
                 disp0 = metrics.pop("_disp_last")
 
-            grads, metrics = all_reduce_gradients(grads, metrics)
-            metrics.update(apply_g(state, grads))
+            with span("train.apply"):
+                grads, metrics = all_reduce_gradients(grads, metrics)
+                metrics.update(apply_g(state, grads))
             total_steps += 1
             if lead and (total_steps % log_every == 0 or total_steps == 1):
-                m = {k: float(v) for k, v in metrics.items()}
-                m["step_time"] = time.perf_counter() - t0
-                logger.push(m, total_steps)
-                nf = m.get("grad_nonfinite_frac", 0.0)
-                print(f"step {total_steps}: loss {m['loss']:.4f} "
-                      f"geo {m['geo']:.4f} flow {m['flow']:.4f} "
-                      f"pnorm {m['param_norm']:.1f} "
-                      f"gnorm {m['grad_norm']:.2f} "
-                      + (f"nanfrac {nf:.3f} " if nf > 0 else "")
-                      + f"({m['step_time']:.2f}s)", flush=True)
+                with span("train.log"):
+                    with sync_site("log.metrics", len(metrics)):
+                        m = {k: float(v) for k, v in metrics.items()}
+                    m["step_time"] = time.perf_counter() - t0
+                    logger.push(m, total_steps)
+                    nf = m.get("grad_nonfinite_frac", 0.0)
+                    print(f"step {total_steps}: loss {m['loss']:.4f} "
+                          f"geo {m['geo']:.4f} flow {m['flow']:.4f} "
+                          f"pnorm {m['param_norm']:.1f} "
+                          f"gnorm {m['grad_norm']:.2f} "
+                          + (f"nanfrac {nf:.3f} " if nf > 0 else "")
+                          + f"({m['step_time']:.2f}s)", flush=True)
 
             if lead and total_steps % cfg.ckpt_every == 0:
                 save_checkpoint(cfg.ckpt_dir, state, total_steps)

@@ -496,3 +496,132 @@ def test_two_shard_ba_on_one_card_matches_single_device():
     torch.testing.assert_close(p2, p1, atol=2e-4, rtol=1e-3)
     torch.testing.assert_close(d2, d1, atol=2e-3, rtol=2e-2)
     assert torch.equal(runs[1][0], p2) and torch.equal(runs[1][1], d2)
+
+
+@pytest.mark.cuda
+def test_tracer_records_under_a_cuda_only_profiler():
+    """The benchmark's profiler (CUDA activity only) switches the tracer
+    on and off, and the tracer adds no event to its device trace."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from droid_slam_tpu_torch.utils import timers
+
+    timers.reset()
+    x = torch.ones(8, device="cuda")
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            assert timers.recording()
+            with timers.span("probe"):
+                with timers.sync_site("probe.item"):
+                    x.sum().item()
+        assert not timers.recording()
+        assert timers.span("probe") is timers._NULL
+        assert timers.counts() == {"probe": 1, "sync.probe.item": 1}
+        names = {e.name() for e in prof.profiler.kineto_results.events()}
+        assert not {"probe", "sync.probe.item"} & names
+    finally:
+        timers.reset()
+
+
+def _waits(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn") with the tracer
+    on: (its result, synchronizing calls warned of, host waits counted by
+    the sync sites)."""
+    import warnings
+
+    from droid_slam_tpu_torch.utils import timers
+
+    def counted():
+        return sum(n for k, n in timers.counts().items()
+                   if k.startswith("sync."))
+
+    timers.enable()
+    before = counted()
+    # the mode switches stay outside the record: the first one can warn
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        timers.enable(False)
+    warned = [w for w in seen if "synchronizing" in str(w.message)]
+    return out, len(warned), counted() - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_mb", [0, 512])
+def test_every_host_wait_of_a_frame_is_a_counted_sync_site(cache_mb):
+    """A keyframe step and a gate frame of the fused path on the card,
+    with volumes correlated on the fly (as in the benchmark's tracking
+    cells) and cached: every synchronizing call lies inside a sync site
+    that counts it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import os.path as osp
+
+    from droid_slam_tpu_torch.config import SLAMConfig
+    from droid_slam_tpu_torch.data.synthetic import render_box_scene
+    from droid_slam_tpu_torch.runtime.slam import Droid
+    from droid_slam_tpu_torch.utils import timers
+
+    weights = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
+                       "weights", "droid_synth.npz")
+    scene = render_box_scene(8, 96, 128, seed=1, motion_scale=0.12)
+    imgs, intr = scene["images"], scene["intrinsics"][0]
+    cfg = SLAMConfig(image_size=(96, 128), buffer=32, warmup=5,
+                     filter_thresh=0.0, corr_cache_mb=cache_mb)
+    droid = Droid(cfg, weights_path=weights, device="cuda")
+    for k in range(5):
+        droid.track(float(k), imgs[k], intrinsics=intr)
+    assert droid.frontend.is_initialized
+    assert droid.frontend.step.cache_vols == (cache_mb > 0)
+    timers.reset()
+    try:
+        for k, thresh, want in ((5, 0.0, True), (6, 1e9, False)):
+            droid.frontend.filter_thresh = thresh
+            kf, warned, counted = _waits(
+                lambda: droid.track(float(k), imgs[k], intrinsics=intr))
+            assert kf == want
+            assert warned > 0 and counted == warned, (k, warned, counted)
+    finally:
+        timers.reset()
+
+
+@pytest.mark.cuda
+def test_every_host_wait_of_an_accumulate_pass_is_a_counted_sync_site():
+    """One accumulate pass (unrolled forward and backward) on the card:
+    every synchronizing call lies inside a sync site that counts it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from droid_slam_tpu_torch.config import TrainConfig
+    from droid_slam_tpu_torch.data.synthetic import render_plane_scene
+    from droid_slam_tpu_torch.geom.graph_utils import temporal_graph
+    from droid_slam_tpu_torch.training import train_step as tts
+    from droid_slam_tpu_torch.training import trainer
+    from droid_slam_tpu_torch.utils import timers
+
+    N, H, W = 4, 64, 96
+    data = render_plane_scene(8, H, W, seed=0)
+    batch_np = dict(images=data["images"][:N].astype(np.float32)[None],
+                    poses=data["poses_c2w"][:N][None],
+                    disps=(1.0 / data["depths"][:N])[None],
+                    intrinsics=data["intrinsics"][:N][None])
+    ii, jj = temporal_graph(N, r=1)
+    cfg = TrainConfig(image_size=(H, W), n_frames=N, steps=100)
+    state = tts.create_train_state(cfg, seed=0, device="cuda")
+    accum, _ = tts.make_train_step(iters=3)
+    timers.reset()
+    try:
+        batch, warned_b, counted_b = _waits(
+            lambda: trainer.make_batch(batch_np, ii, jj, 8, "cuda"))
+        _, warned, counted = _waits(lambda: accum(
+            tts.zero_grads(state.net), state.net, batch,
+            torch.zeros(1, N, 7, device="cuda"),
+            torch.zeros(1, N, H // 8, W // 8, device="cuda")))
+        assert warned_b > 0 and counted_b == warned_b
+        assert warned > 0 and counted == warned, (warned, counted)
+    finally:
+        timers.reset()
