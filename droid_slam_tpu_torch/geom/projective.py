@@ -14,7 +14,6 @@ Conventions (identical to the JAX package and the reference):
 import torch
 
 from ..lie import se3
-from ..utils.timers import sync_site
 
 MIN_DEPTH = 0.2
 STEREO_TX = -0.1
@@ -110,8 +109,9 @@ def _edge_transform(poses, ii, jj, stereo_tx=STEREO_TX):
     Gi = poses[..., ii, :]
     Gj = poses[..., jj, :]
     Gij = se3.mul(Gj, se3.inv(Gi))
-    with sync_site("h2d.const"):
-        stereo = poses.new_tensor([stereo_tx, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0])
+    # [stereo_tx, 0, 0, 0, 0, 0, 1], made on the device: no host upload
+    k = torch.arange(7, device=poses.device)
+    stereo = torch.where(k == 0, stereo_tx, (k == 6).to(poses.dtype))
     rig = (ii == jj)[..., None]
     return torch.where(rig, stereo, Gij)
 

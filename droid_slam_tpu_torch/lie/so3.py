@@ -7,8 +7,6 @@ operands, as in the JAX package.
 
 import torch
 
-from ..utils.timers import sync_site
-
 _EPS = 1e-8
 
 
@@ -36,9 +34,7 @@ def mul(q1, q2):
 
 def inv(q):
     """Inverse of a unit quaternion (conjugate)."""
-    with sync_site("h2d.const"):
-        conj = q.new_tensor([-1.0, -1.0, -1.0, 1.0])
-    return q * conj
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def cross(a, b):

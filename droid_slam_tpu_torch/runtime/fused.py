@@ -30,7 +30,7 @@ from ..geom import projective
 from ..models.droidnet import normalize_images
 from ..models.update import upsample_disp
 from ..ops import corr as corr_ops
-from ..ops import dba, distance
+from ..ops import dba_static, distance
 from ..utils.timers import span, sync_site
 from .factor_graph import DAMPING_EPS, corr_pixel_chunk, edge_correlation
 from .factor_graph import segment_ids, target_fmaps
@@ -107,11 +107,6 @@ def fused_caps(cfg):
 def _rows(idx, device):
     with sync_site("h2d.rows"):
         return torch.as_tensor(np.asarray(idx, np.int64), device=device)
-
-
-def _mask(mask, device):
-    with sync_site("h2d.mask"):
-        return torch.as_tensor(mask, device=device)
 
 
 def retire(g, mask):
@@ -239,6 +234,49 @@ class KeyframeStep:
          self.EI) = fused_caps(cfg)
         self.cache_vols = volume_cache_fits(cfg, self.EA, video.fht,
                                             video.fwd)
+        # the round's dense BA: one CUDA graph on the card
+        self.ba = dba_static.GraphedRound(self._round_ba)
+
+    def _round_ba(self, poses, disps, disps_sens, intrinsics, target,
+                  weight, damping, idx):
+        """The round's dense BA (`ops/dba_static`) with its divergence
+        guard: the whole round reverts on non-finite output."""
+        cfg = self.cfg
+        p, d = dba_static.ba(
+            poses, disps, disps_sens, intrinsics, target, weight,
+            0.2 * damping + DAMPING_EPS, idx, K=self.K, P=self.P,
+            iters=cfg.ba_iters, lm=cfg.frontend_lm, ep=cfg.frontend_ep)
+        ok = torch.isfinite(p.sum()) & torch.isfinite(d.sum())
+        return torch.where(ok, p, poses), torch.where(ok, d, disps)
+
+    def _ba_inputs(self, g):
+        st = self.video.state
+        return (st.poses, st.disps, st.disps_sens, st.intrinsics, g.target,
+                g.weight, st.damping)
+
+    def _ba_indices(self, g):
+        """The round's BA edges (active ∪ recent-inactive), pose window
+        and depth frames, packed for `dba_static`."""
+        act = np.nonzero(g.active)[0]
+        ii_act, jj_act = g.ii[act], g.jj[act]
+        buf = self.cfg.buffer
+        t0 = max(1, (int(ii_act.min()) if len(act) else buf + 1) + 1)
+        t1b = (int(np.maximum(ii_act, jj_act).max()) if len(act)
+               else -1) + 1
+        recent = (g.ii >= t0 - 3) & (g.jj >= t0 - 3)
+        mask_ba = g.exist() & recent
+        mask_ba[: g.EA] = g.active
+        kx, kmask = build_kx(g.ii, mask_ba, t0, t1b, buf, self.K)
+        return dba_static.pack(g.ii, g.jj, mask_ba, kx, kmask, t0, t1b)
+
+    def capture(self, g):
+        """Capture the round's BA graph now (on the card; nothing to do on
+        the CPU or once captured), so that no round pays for it.  The boot
+        calls it, not `Droid.prewarm`: the first capture in a process pays
+        the first use of the geometry's kernels and libraries (seconds on
+        an H100), which the boot's own BA pays there otherwise."""
+        if self.video.device.type == "cuda" and self.ba.graph is None:
+            self.ba.capture(self._ba_inputs(g), self._ba_indices(g))
 
     def update_op(self, g, act, vols=None):
         """Update operator over the active edge slots `act` (non-empty):
@@ -288,35 +326,16 @@ class KeyframeStep:
         with span("keyframe.round"):
             cfg, video = self.cfg, self.video
             st = video.state
-            buf = cfg.buffer
-            dev = video.device
             act = np.nonzero(g.active)[0]
             if len(act):
                 frames, upmask = self.update_op(g, act, vols)
 
             # dense BA over active ∪ recent-inactive edges
-            ii_act, jj_act = g.ii[act], g.jj[act]
-            t0 = max(1, (int(ii_act.min()) if len(act) else buf + 1) + 1)
-            t1b = (int(np.maximum(ii_act, jj_act).max()) if len(act)
-                   else -1) + 1
-            recent = (g.ii >= t0 - 3) & (g.jj >= t0 - 3)
-            mask_ba = g.exist() & recent
-            mask_ba[: g.EA] = g.active
-            kx, kmask = build_kx(g.ii, mask_ba, t0, t1b, buf, self.K)
-            eta = 0.2 * st.damping + DAMPING_EPS
             with span("round.ba"):
-                poses, disps = dba.ba(
-                    st.poses, st.disps, st.disps_sens, st.intrinsics,
-                    g.target, g.weight, eta, _rows(g.ii, dev),
-                    _rows(g.jj, dev), _mask(mask_ba, dev), _rows(kx, dev),
-                    _mask(kmask, dev), t0, t1b, iters=cfg.ba_iters,
-                    lm=cfg.frontend_lm, ep=cfg.frontend_ep, P=self.P)
-                # divergence guard: revert the whole round on non-finite
-                # output
-                ok = (torch.isfinite(poses.sum())
-                      & torch.isfinite(disps.sum()))
-                st.poses.copy_(torch.where(ok, poses, st.poses))
-                st.disps.copy_(torch.where(ok, disps, st.disps))
+                poses, disps = self.ba(self._ba_inputs(g),
+                                       self._ba_indices(g))
+                st.poses.copy_(poses)
+                st.disps.copy_(disps)
             g.age = np.where(g.active, g.age + 1, g.age)
             if len(act) and cfg.upsample:
                 st.disps_up[frames] = upsample_disp(st.disps[frames],
@@ -526,6 +545,7 @@ class FusedFrontend:
         self.t1 = boot.t1
         self.is_initialized = True
         self.adopt(boot.graph)
+        self.step.capture(self.g)
 
     def adopt(self, graph):
         """Convert the boot FactorGraph into the GraphState regions."""

@@ -498,6 +498,100 @@ def test_two_shard_ba_on_one_card_matches_single_device():
     assert torch.equal(runs[1][0], p2) and torch.equal(runs[1][1], d2)
 
 
+def _booted_droid(**kw):
+    """`Droid` on the card at 96x128 after the five boot frames, with the
+    frames of its synthetic scene."""
+    import os.path as osp
+
+    from droid_slam_tpu_torch.config import SLAMConfig
+    from droid_slam_tpu_torch.data.synthetic import render_box_scene
+    from droid_slam_tpu_torch.runtime.slam import Droid
+
+    weights = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
+                       "weights", "droid_synth.npz")
+    scene = render_box_scene(12, 96, 128, seed=1, motion_scale=0.12)
+    imgs, intr = scene["images"], scene["intrinsics"][0]
+    cfg = SLAMConfig(image_size=(96, 128), buffer=32, warmup=5,
+                     filter_thresh=0.0, **kw)
+    droid = Droid(cfg, weights_path=weights, device="cuda")
+    for k in range(5):
+        droid.track(float(k), imgs[k], intrinsics=intr)
+    assert droid.frontend.is_initialized
+    return droid, imgs, intr
+
+
+@pytest.mark.cuda
+def test_ba_graph_replays_the_eager_static_path():
+    """Each keyframe round's BA graph (captured at the boot) against the
+    same static-shape BA run eagerly on the card, bit for bit, over rounds
+    whose pose windows, masks and depth frames differ, the last frames
+    after the GraphState's tensors were replaced; two replays of one
+    round's inputs repeat bit for bit; every round replays (the tracer's
+    `ba.replay` against `round.ba`) and none captures again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import dataclasses
+
+    from droid_slam_tpu_torch.utils import timers
+
+    droid, imgs, intr = _booted_droid()
+    step = droid.frontend.step
+    graphed = step.ba
+    assert graphed.graph is not None           # captured at the boot
+    seen = []
+
+    def both(tensors, idx):
+        want = [t.clone() for t in step._round_ba(
+            *tensors, torch.from_numpy(idx).cuda())]
+        got = [t.clone() for t in graphed(tensors, idx)]
+        again = graphed(tensors, idx)
+        seen.append((idx.tobytes(), all(
+            torch.equal(a, b) and torch.equal(a, c)
+            for a, b, c in zip(got, want, again))))
+        return again
+
+    step.ba = both
+    timers.reset()
+    timers.enable()
+    try:
+        for k in range(5, 12):
+            if k == 9:
+                g = droid.frontend.g
+                droid.frontend.g = dataclasses.replace(
+                    g, target=g.target.clone(), weight=g.weight.clone())
+            droid.track(float(k), imgs[k], intrinsics=intr)
+        counts = timers.counts()
+    finally:
+        timers.enable(False)
+        timers.reset()
+    assert len(seen) >= 12 and len({i for i, _ in seen}) >= 6
+    assert all(eq for _, eq in seen), [eq for _, eq in seen]
+    assert counts["ba.replay"] == 2 * counts["round.ba"] == 2 * len(seen)
+    assert "ba.capture" not in counts
+
+
+@pytest.mark.cuda
+def test_ba_graph_and_its_eager_path_never_wait_for_the_card():
+    """The static-shape BA run eagerly, and a replay of its graph, under
+    `torch.cuda.set_sync_debug_mode("error")`: no call inside waits for
+    the card (the upload of the round's indices lies outside)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    droid, _, _ = _booted_droid()
+    step, g = droid.frontend.step, droid.frontend.g
+    tensors = step._ba_inputs(g)
+    idx = torch.from_numpy(step._ba_indices(g)).cuda()
+    step.ba.idx.copy_(idx)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step._round_ba(*tensors, idx)
+        step.ba.graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_tracer_records_under_a_cuda_only_profiler():
     """The benchmark's profiler (CUDA activity only) switches the tracer

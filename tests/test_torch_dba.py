@@ -101,6 +101,63 @@ def test_ba_motion_only():
     np.testing.assert_array_equal(gd, np.maximum(p["disps"], 0.001))
 
 
+# the static-shape BA of the fused keyframe step (ops/dba_static.py), run
+# eagerly as the CPU runs it: (t0, t1, P, K, sens, poison) — random
+# problems, a pose window narrower than [t0, t1), the RGB-D prior, kx
+# filling its cap K (seven frames), and masked slots holding NaN and inf
+STATIC_CASES = {
+    "random0": (0, 1, 6, 8, 8, False, False),
+    "random1": (1, 1, 6, 8, 8, False, False),
+    "narrow": (2, 1, 6, 3, 8, False, False),
+    "sens": (0, 1, 6, 8, 8, True, False),
+    "kx_cap": (1, 1, 6, 8, 7, False, False),
+    "poisoned": (3, 2, 5, 4, 8, True, True),
+}
+
+
+def _run_static(p, t0, t1, P, K, poison):
+    """`dba_static.ba` over the problem's edges in a store of 16 slots: the
+    last four slots (and the masked edge) are outside the BA mask, point
+    outside the buffer and, under `poison`, hold NaN and inf."""
+    from droid_slam_tpu_torch.ops import dba_static
+
+    n, extra = len(p["ii"]), 4
+    ii = np.concatenate([p["ii"], np.full(extra, 99)])
+    jj = np.concatenate([p["jj"], np.full(extra, -5)])
+    mask = np.concatenate([p["mask"], np.zeros(extra, bool)])
+    target = np.concatenate([p["target"], np.zeros((extra, H, W, 2),
+                                                   np.float32)])
+    weight = np.concatenate([p["weight"], np.ones((extra, H, W, 2),
+                                                  np.float32)])
+    if poison:
+        target[~mask] = np.nan
+        weight[n - 1, :, :, 0] = np.inf
+        weight[n:, 1:] = np.nan
+    kx, kmask = tdba.build_schur_tables(p["ii"], p["mask"], t0, t1, K)
+    idx = dba_static.pack(ii, jj, mask, kx, kmask, t0, t1)
+    t = {k: torch.from_numpy(np.array(p[k])) for k in _STATE}
+    got = dba_static.ba(
+        t["poses"], t["disps"], t["disps_sens"], t["intrinsics"],
+        torch.from_numpy(target), torch.from_numpy(weight), t["eta"],
+        torch.from_numpy(idx), K=K, P=P, iters=2, lm=1e-4, ep=0.1)
+    return [g.numpy() for g in got]
+
+
+@pytest.mark.parametrize("case", sorted(STATIC_CASES))
+def test_static_ba_matches_dba_and_jax(case):
+    seed, t0, t1, P, K, sens, poison = STATIC_CASES[case]
+    p = _problem(seed, sens)
+    (ep, ed), (wp, wd) = _run_both(p, t0, t1, P=P, K=K)
+    gp, gd = _run_static(p, t0, t1, P, K, poison)
+    assert np.isfinite(gp).all() and np.isfinite(gd).all()
+    assert np.abs(gp - p["poses"]).max() > 1e-3      # the solve moved
+    for want in ((ep, ed), (wp, wd)):                # ops/dba, JAX
+        np.testing.assert_allclose(gp, want[0], atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(gd, want[1], atol=1e-4, rtol=1e-4)
+    if P < t1 - t0:                                  # past the window
+        np.testing.assert_array_equal(gp[t0 + P:], ep[t0 + P:])
+
+
 def test_schur_tables_raise_over_capacity():
     with pytest.raises(ValueError):
         tdba.build_schur_tables(np.arange(6), np.ones(6, bool), 0, 4, 5)

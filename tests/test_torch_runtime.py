@@ -176,3 +176,35 @@ def test_staged_pipeline_matches_jax(monkeypatch):
     got = td.traj_filler(iter(stream))
     assert got.shape == (12, 7)
     np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_fused_steps_match_jax_whatever_unused_slots_hold(monkeypatch):
+    """Fused keyframe steps from the JAX state, with every edge slot the
+    graph state does not hold (free active slots, empty ring slots)
+    filled with NaN targets and infinite weights in the port: its
+    static-shape BA linearizes every slot and must select those to zero,
+    so the steps still match the JAX package's at the staged bounds."""
+    widen_onehot(monkeypatch)
+    from droid_slam_tpu.config import SLAMConfig as JC
+    from droid_slam_tpu.runtime.slam import Droid as JD
+    from droid_slam_tpu_torch.config import SLAMConfig as TC
+    from droid_slam_tpu_torch.runtime.slam import Droid as TD
+
+    imgs, intr = tiny_seq()
+    jd = JD(JC(**TINY), weights_path=WEIGHTS)
+    td = TD(TC(**TINY), weights_path=WEIGHTS, device="cpu")
+    for k in range(5):
+        jd.track(float(k), imgs[k], intrinsics=intr)
+        td.track(float(k), imgs[k], intrinsics=intr)
+    for k in range(5, 9):
+        copy_video(jd, td)
+        copy_graph(jd, td)
+        g = td.frontend.g
+        unused = torch.from_numpy(np.flatnonzero(~g.exist()))
+        assert len(unused) > 0
+        g.target[unused] = float("nan")
+        g.weight[unused] = float("inf")
+        jd.track(float(k), imgs[k], intrinsics=intr)
+        jd._sync()
+        td.track(float(k), imgs[k], intrinsics=intr)
+        _assert_state_close(jd, td)
