@@ -21,6 +21,7 @@ import pickle
 
 import numpy as np
 
+from ..utils.timers import span
 from .augmentation import augment_sample
 from .image_io import imread_rgb
 from .rgbd_utils import build_frame_graph_from_files
@@ -135,21 +136,24 @@ class RGBDDataset:
         scene_id, inds = self.frame_indices(index, rng)
         info = self.scene_info[scene_id]
 
-        images = np.stack(
-            [self.__class__.image_read(info["images"][i]) for i in inds]
-        ).astype(np.float32)
-        depths = np.stack(
-            [self.__class__.depth_read(info["depths"][i]) for i in inds]
-        ).astype(np.float32)
-        poses = np.stack([info["poses"][i] for i in inds]).astype(np.float32)
-        intrinsics = np.stack(
-            [info["intrinsics"][i] for i in inds]).astype(np.float32)
+        with span("data.read"):
+            images = np.stack(
+                [self.__class__.image_read(info["images"][i]) for i in inds]
+            ).astype(np.float32)
+            depths = np.stack(
+                [self.__class__.depth_read(info["depths"][i]) for i in inds]
+            ).astype(np.float32)
+            poses = np.stack([info["poses"][i] for i in inds]).astype(
+                np.float32)
+            intrinsics = np.stack(
+                [info["intrinsics"][i] for i in inds]).astype(np.float32)
 
         disps = 1.0 / depths
 
         if self.do_aug:
-            images, poses, disps, intrinsics = augment_sample(
-                images, poses, disps, intrinsics, self.crop_size, rng)
+            with span("data.augment"):
+                images, poses, disps, intrinsics = augment_sample(
+                    images, poses, disps, intrinsics, self.crop_size, rng)
 
         # scale normalisation: mean disparity 1
         valid = disps > 0.01

@@ -25,7 +25,7 @@ from ..geom import projective
 from ..models.update import upsample_disp
 from ..ops import corr as corr_ops
 from ..utils.mem import log_mem
-from ..utils.timers import span, sync_site
+from ..utils.timers import count, recording, span, sync_site
 from .proximity import select_proximity_edges
 from .state import pool_pyramid
 
@@ -48,6 +48,14 @@ def segment_ids(ii):
     with sync_site("segments.unique"):
         frames, ix = torch.unique(ii, return_inverse=True)
     return ix, frames
+
+
+def count_edges(ii, jj):
+    """Count a round's updated edges (`edges.active`) and its rig edges
+    ii == jj (`edges.stereo`) in the tracer, from host arrays."""
+    if recording():
+        count("edges.active", len(ii))
+        count("edges.stereo", int(np.count_nonzero(ii == jj)))
 
 
 def target_fmaps(fmaps, ii, jj):
@@ -170,6 +178,7 @@ class FactorGraph:
             sl = np.nonzero(mask[lo:lo + self.chunk])[0] + lo
             if len(sl) == 0:
                 continue
+            count_edges(ii[sl], jj[sl])
             s = self._t(sl)
             ii_c, jj_c = self._t(ii[sl]), self._t(jj[sl])
             coords1, _ = projective.projective_transform(

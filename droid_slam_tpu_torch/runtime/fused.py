@@ -33,7 +33,7 @@ from ..ops import corr as corr_ops
 from ..ops import dba_static, distance
 from ..utils.timers import span, sync_site
 from .factor_graph import DAMPING_EPS, corr_pixel_chunk, edge_correlation
-from .factor_graph import segment_ids, target_fmaps
+from .factor_graph import count_edges, segment_ids, target_fmaps
 from .motion_filter import as_image_batch
 from .proximity import select_proximity_edges
 from .state import disp_from_depth, keyframe_colors, pool_pyramid
@@ -287,6 +287,7 @@ class KeyframeStep:
         st = video.state
         ht, wd = video.fht, video.fwd
         dev = video.device
+        count_edges(g.ii[act], g.jj[act])
         a = _rows(act, dev)
         ii_a, jj_a = _rows(g.ii[act], dev), _rows(g.jj[act], dev)
         coords1, _ = projective.projective_transform(

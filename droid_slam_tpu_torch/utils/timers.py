@@ -10,6 +10,8 @@ clock is the host's: a span measures what the host spends in it
 stream (`.item()`, `.cpu()`, `torch.nonzero`, a boolean index,
 `torch.unique`, a blocking host-to-device copy): it counts the call's
 host waits (`n`, one by default) and records the span `sync.<name>`.
+`count(name, n)` adds `n` to a counter of work done (say, the edges a
+round updates) and records no span.
 
 The tracer records only while it is on: after `enable()`, or while a
 `torch.profiler` session records; a span is kept when the tracer is on at
@@ -25,7 +27,8 @@ the counts and total times per name stay exact when it wraps.
     timers.enable()
     ...                                 # track frames, train steps
     print(timers.report())              # per name: count, warm/mean ms
-    timers.spans(), timers.counts()     # the raw records
+    timers.spans(), timers.counts()     # the raw records (counts: spans
+                                        # closed, host waits, counters)
 """
 
 import contextlib
@@ -95,6 +98,11 @@ class Tracer:
             return _NULL
         return _Span(self, "sync." + name, n)
 
+    def count(self, name, n=1):
+        """Add `n` to the counter `name` while recording (no span)."""
+        if self.on or _profiler._is_profiler_enabled:
+            self._counts[name] = self._counts.get(name, 0) + n
+
     def _close(self, name, t0, t1, n):
         if len(self._ring) < self.capacity:
             self._ring.append((name, t0, t1))
@@ -109,7 +117,8 @@ class Tracer:
         return self._ring[self._next:] + self._ring[:self._next]
 
     def counts(self):
-        """{name: spans closed}; a `sync.` name counts its host waits."""
+        """{name: spans closed}; a `sync.` name counts its host waits, a
+        counter what `count` added."""
         return dict(self._counts)
 
     def totals_ns(self):
@@ -126,14 +135,15 @@ class Tracer:
         return best[0] if best else None
 
     def summary(self):
-        """{name: count, total_s, mean_ms, warm_ms, first_ms, max_ms}:
-        count and total exact, the rest over the ring's spans (warm: the
-        median of the last RECENT, as the first carries one-time costs)."""
+        """{span name: count, total_s, mean_ms, warm_ms, first_ms,
+        max_ms}: count and total exact, the rest over the ring's spans
+        (warm: the median of the last RECENT, as the first carries
+        one-time costs)."""
         by_name = {}
         for name, a, b in self.spans():
             by_name.setdefault(name, []).append(b - a)
         out = {}
-        for name in sorted(self._counts):
+        for name in sorted(self._ns):
             d = by_name.get(name, [0])
             recent = sorted(d[-self.RECENT:])
             k = len(recent)
@@ -157,6 +167,11 @@ class Tracer:
                 f"{name:28s} {s['count']:7d} {s['warm_ms']:10.3f} "
                 f"{s['mean_ms']:10.3f} {s['first_ms']:10.3f} "
                 f"{s['max_ms']:10.3f} {s['total_s']:9.3f}")
+        counters = sorted(set(self._counts) - set(self._ns))
+        if counters:
+            lines.append(f"{'counter':28s} {'count':>7s}")
+            lines += [f"{name:28s} {self._counts[name]:7d}"
+                      for name in counters]
         return "\n".join(lines)
 
 
@@ -165,6 +180,7 @@ enable = TRACER.enable
 recording = TRACER.recording
 span = TRACER.span
 sync_site = TRACER.sync_site
+count = TRACER.count
 spans = TRACER.spans
 counts = TRACER.counts
 totals_ns = TRACER.totals_ns
