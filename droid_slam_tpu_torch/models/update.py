@@ -16,7 +16,6 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops import scatter
-from ..utils.timers import sync_site
 from .gru import ConvGRU
 from .layers import conv, grad_clip, to_nchw, to_nhwc
 
@@ -24,20 +23,16 @@ COR_PLANES = 4 * (2 * 3 + 1) ** 2  # 196
 
 
 def segment_mean(x, ix, nseg):
-    """Mean of x (E, ...) over segment ids ix (E,); ids >= nseg are
-    dropped.  Sums in float32, result in x's dtype.  Returns (nseg, ...)."""
-    keep = ix < nseg
-    with sync_site("graphagg.mask"):
-        idx = ix[keep]
+    """Mean of x (E, ...) over segment ids ix (E,), every id below nseg;
+    a row no id names reads 0.  Sums in float32 and counts by a scatter
+    of ones (whole numbers, so exact in any order): no host wait.  Result
+    in x's dtype, (nseg, ...)."""
     tot = torch.zeros((nseg,) + x.shape[1:], device=x.device,
                       dtype=torch.float32)
-    with sync_site("graphagg.mask"):
-        kept = x[keep]
-    scatter.index_add_(tot, 0, idx, kept.float())
-    # bincount reads the index's least and largest value back: two waits
-    with sync_site("graphagg.bincount", 2):
-        cnt = torch.bincount(idx, minlength=nseg)
-    cnt = cnt.clamp(min=1).float()
+    scatter.index_add_(tot, 0, ix, x.float())
+    cnt = torch.zeros(nseg, device=x.device).index_add_(
+        0, ix, torch.ones(ix.shape, device=x.device))
+    cnt = cnt.clamp(min=1)
     return (tot / cnt.reshape((-1,) + (1,) * (x.ndim - 1))).to(x.dtype)
 
 
@@ -79,7 +74,7 @@ class UpdateModule(nn.Module):
         self.agg = GraphAgg()
 
     def forward(self, net, inp, corr, flow=None, ix=None, nseg=None,
-                with_upmask=False):
+                with_upmask=False, graphs=None):
         """One update-operator step.
 
         Args:
@@ -90,11 +85,18 @@ class UpdateModule(nn.Module):
           ix:   optional (E,) source-frame segment ids for GraphAgg.
           nseg: segment count for GraphAgg.
           with_upmask: also return GraphAgg's upsampling logits.
+          graphs: optional `update_graphs.UpdateGraphs` of this module:
+            where it holds a graph of this call, the call replays it
+            (same outputs, in the table's buffers) instead of launching
+            the steps below.
 
         Returns (net, delta, weight[, eta[, upmask]]); net is
         (E, H, W, 128) in the module's dtype, delta/weight are f32
         (E, H, W, 2).
         """
+        if graphs is not None and graphs.fits(net.shape[0], nseg,
+                                              with_upmask):
+            return graphs(net, inp, corr, flow, ix)
         dt = self.corr_encoder_0.weight.dtype
         E, H, W, _ = net.shape
         net = to_nchw(net.to(dt))

@@ -29,7 +29,8 @@ import torch
 
 from ..geom import projective
 from ..lie import se3
-from ..utils.timers import span, sync_site
+from ..utils import graphs
+from ..utils.timers import span
 from .dba import ALPHA, W_SCALE
 
 HV_CHUNK = 128        # residual rows per product of the Gauss-Newton blocks
@@ -169,39 +170,37 @@ def ba(poses, disps, disps_sens, intrinsics, target, weight, eta, idx, *,
 class GraphedRound:
     """`fn(*tensors, idx)` at shapes fixed per instance: on the CPU called
     as it is; on CUDA captured once into a CUDA graph that reads static
-    copies of its inputs, then replayed (spans `ba.capture`,
-    `ba.replay`).  `idx` is a host int64 array, uploaded in one copy.
-    The outputs are the graph's own buffers, valid until the next call."""
+    copies of `tensors`, then replayed (spans `ba.capture`, `ba.replay`).
+    On CUDA `idx` is a device tensor of fixed storage that the caller
+    fills before each call (the keyframe step's upload of a round's
+    indices): the graph reads it in place, so every call passes that same
+    tensor.  The outputs are the graph's own buffers, valid until the
+    next call."""
 
     def __init__(self, fn):
         self.fn = fn
         self.graph = None
 
     def capture(self, tensors, idx):
-        """Warm up on a side stream (library handles and workspaces), then
-        capture `fn` over static copies of the inputs."""
+        """Capture `fn` over static copies of the tensors and over `idx`
+        itself."""
         with span("ba.capture"), torch.no_grad():
             self.static = [t.clone() for t in tensors]
-            self.idx = torch.as_tensor(idx).to(tensors[0].device)
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self.fn(*self.static, self.idx)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self.out = self.fn(*self.static, self.idx)
-            self.graph = graph
+            self.idx = idx
+            self.graph, self.out = graphs.capture(
+                lambda: self.fn(*self.static, self.idx))
 
     def __call__(self, tensors, idx):
         if not tensors[0].is_cuda:
-            return self.fn(*tensors, torch.from_numpy(idx))
+            return self.fn(*tensors, idx)
         if self.graph is None:
             self.capture(tensors, idx)
+        if (idx.data_ptr(), idx.shape) != (self.idx.data_ptr(),
+                                          self.idx.shape):
+            raise ValueError("the BA graph reads the index tensor it was "
+                             "captured with; pass that tensor")
         for s, t in zip(self.static, tensors):
             s.copy_(t)
-        with sync_site("h2d.ba"):
-            self.idx.copy_(torch.from_numpy(idx))
         with span("ba.replay"):
             self.graph.replay()
         return self.out

@@ -2,8 +2,11 @@
 
 The JAX package traces these into one device program per keyframe; here
 they run eagerly, with host reads (`.item()`) for the keyframe and cull
-decisions and host-side (numpy) edge bookkeeping.  The semantics are the
-JAX package's and decide the trajectory:
+decisions and host-side (numpy) edge bookkeeping.  An update round waits
+for nothing: the host packs its indices into one upload for each edge
+set, and on the card its update operator and dense BA replay CUDA graphs
+captured at the boot.  The semantics are the JAX package's and decide
+the trajectory:
 
     stale-edge retirement → proximity distance grid → NMS greedy edge
     selection → dedup / LRU-evict / insert → 4 update+BA rounds →
@@ -29,11 +32,12 @@ import torch
 from ..geom import projective
 from ..models.droidnet import normalize_images
 from ..models.update import upsample_disp
+from ..models.update_graphs import UpdateGraphs
 from ..ops import corr as corr_ops
 from ..ops import dba_static, distance
 from ..utils.timers import span, sync_site
 from .factor_graph import DAMPING_EPS, corr_pixel_chunk, edge_correlation
-from .factor_graph import count_edges, segment_ids, target_fmaps
+from .factor_graph import count_edges, target_fmaps
 from .motion_filter import as_image_batch
 from .proximity import select_proximity_edges
 from .state import disp_from_depth, keyframe_colors, pool_pyramid
@@ -107,6 +111,34 @@ def fused_caps(cfg):
 def _rows(idx, device):
     with sync_site("h2d.rows"):
         return torch.as_tensor(np.asarray(idx, np.int64), device=device)
+
+
+class IndexUpload:
+    """Host int64 arrays of one length into one device tensor of fixed
+    storage, uploaded only when they change, from a pinned buffer and
+    without a host wait; on the card an event keeps the pinned buffer
+    from being rewritten before its copy has run."""
+
+    def __init__(self, n, device):
+        cuda = device.type == "cuda"
+        self.dev = torch.zeros(n, dtype=torch.int64, device=device)
+        self.host = torch.zeros(n, dtype=torch.int64, pin_memory=cuda)
+        self.copied = torch.cuda.Event() if cuda else None
+        self.last = None
+
+    def __call__(self, arr):
+        """The device tensor, holding `arr`."""
+        if self.last is not None and np.array_equal(arr, self.last):
+            return self.dev
+        if self.copied is not None and not self.copied.query():
+            with sync_site("h2d.idx"):
+                self.copied.synchronize()
+        self.host.numpy()[:] = arr
+        self.dev.copy_(self.host, non_blocking=True)
+        if self.copied is not None:
+            self.copied.record()
+        self.last = arr
+        return self.dev
 
 
 def retire(g, mask):
@@ -234,8 +266,13 @@ class KeyframeStep:
          self.EI) = fused_caps(cfg)
         self.cache_vols = volume_cache_fits(cfg, self.EA, video.fht,
                                             video.fwd)
-        # the round's dense BA: one CUDA graph on the card
+        # the round's dense BA: one CUDA graph on the card; the update
+        # operator: one for each edge count, made by `capture`
         self.ba = dba_static.GraphedRound(self._round_ba)
+        self.op_graphs = None
+        # a round's indices (`_indices`): 5 rows of EA, then the BA's
+        n_ba = 3 * (self.EA + self.EI) + 2 * self.K + 2
+        self.upload = IndexUpload(5 * self.EA + n_ba, video.device)
 
     def _round_ba(self, poses, disps, disps_sens, intrinsics, target,
                   weight, damping, idx):
@@ -269,55 +306,79 @@ class KeyframeStep:
         kx, kmask = build_kx(g.ii, mask_ba, t0, t1b, buf, self.K)
         return dba_static.pack(g.ii, g.jj, mask_ba, kx, kmask, t0, t1b)
 
+    def _indices(self, g, act):
+        """The round's indices as one device tensor, uploaded when they
+        change (once for each edge set): rows of EA holding the slots
+        `act`, their ii and jj, their GraphAgg segment ids (the inverse
+        of their sorted distinct source frames, as `torch.unique` gives
+        it) and those frames, then `_ba_indices`.  Returns (tensor, frame
+        count)."""
+        ii_a = g.ii[act]
+        frames, ix = np.unique(ii_a, return_inverse=True)
+        rows = np.zeros((5, self.EA), np.int64)
+        for r, x in zip(rows, (act, ii_a, g.jj[act], ix, frames)):
+            r[:len(x)] = x
+        packed = np.concatenate([rows.reshape(-1), self._ba_indices(g)])
+        return self.upload(packed), len(frames)
+
     def capture(self, g):
-        """Capture the round's BA graph now (on the card; nothing to do on
-        the CPU or once captured), so that no round pays for it.  The boot
-        calls it, not `Droid.prewarm`: the first capture in a process pays
-        the first use of the geometry's kernels and libraries (seconds on
-        an H100), which the boot's own BA pays there otherwise."""
-        if self.video.device.type == "cuda" and self.ba.graph is None:
-            self.ba.capture(self._ba_inputs(g), self._ba_indices(g))
+        """Capture the round's BA graph and the update operator's graphs
+        now (on the card; nothing to do on the CPU or once captured), so
+        that no round pays for them.  The boot calls it, not
+        `Droid.prewarm`: the first capture in a process pays the first
+        use of the geometry's kernels and libraries (seconds on an H100),
+        which the boot's own BA pays there otherwise."""
+        video = self.video
+        if video.device.type != "cuda" or self.ba.graph is not None:
+            return
+        idx, _ = self._indices(g, np.nonzero(g.active)[0])
+        self.ba.capture(self._ba_inputs(g), idx[5 * self.EA:])
+        self.op_graphs = UpdateGraphs(self.net.update, self.EA, video.fht,
+                                      video.fwd, video.state.inps.dtype,
+                                      self.cfg.upsample)
+        self.op_graphs.capture()
 
     def update_op(self, g, act, vols=None):
         """Update operator over the active edge slots `act` (non-empty):
         new GRU state, targets and weights, and the damping of their
-        source frames.  Returns (source frames, upsampling mask or
-        None)."""
+        source frames.  Returns (source frames, upsampling mask or None),
+        views valid until the round's next upload or replay."""
         cfg, video = self.cfg, self.video
         st = video.state
         ht, wd = video.fht, video.fwd
-        dev = video.device
+        E, EA = len(act), self.EA
         count_edges(g.ii[act], g.jj[act])
-        a = _rows(act, dev)
-        ii_a, jj_a = _rows(g.ii[act], dev), _rows(g.jj[act], dev)
+        idx, nf = self._indices(g, act)
+        a, ii_a, jj_a, ix = (idx[r * EA:r * EA + E] for r in range(4))
+        frames = idx[4 * EA:4 * EA + nf]
         coords1, _ = projective.projective_transform(
             st.poses[None], st.disps[None], st.intrinsics[None],
             ii_a, jj_a)
         coords1 = coords1[0]
-        coords0 = projective.coords_grid(ht, wd, device=dev)
+        coords0 = projective.coords_grid(ht, wd, device=video.device)
         motn = torch.clamp(torch.cat(
             [coords1 - coords0, g.target[a] - coords1], dim=-1),
             -64.0, 64.0)
         with span("round.corr"):
             if vols is not None:
                 corr = corr_ops.lookup_pyramid_flat(
-                    vols, coords1.reshape(len(act), ht * wd, 2)
-                ).reshape(len(act), ht, wd, -1)
+                    vols, coords1.reshape(E, ht * wd, 2)
+                ).reshape(E, ht, wd, -1)
             else:
                 corr = edge_correlation(
                     st.fmaps, ii_a, jj_a, coords1,
-                    corr_pixel_chunk(cfg, self.EA, ht * wd))
-        ix, frames = segment_ids(ii_a)
+                    corr_pixel_chunk(cfg, EA, ht * wd))
         with span("round.update_op"):
+            # GraphAgg over E segment rows, of which the first nf are used
             out = self.net.update(
-                g.net[a], st.inps[ii_a], corr, motn, ix=ix,
-                nseg=len(frames), with_upmask=cfg.upsample)
+                g.net[a], st.inps[ii_a], corr, motn, ix=ix, nseg=E,
+                with_upmask=cfg.upsample, graphs=self.op_graphs)
             net_new, delta, weight, eta = out[:4]
             g.net[a] = net_new.float()
             g.target[a] = coords1 + delta
             g.weight[a] = weight
-            st.damping[frames] = eta
-        return frames, (out[4] if cfg.upsample else None)
+            st.damping[frames] = eta[:nf]
+        return frames, (out[4][:nf] if cfg.upsample else None)
 
     def update_round(self, g, vols=None):
         """Update operator over the active edges, then dense BA over
@@ -333,8 +394,9 @@ class KeyframeStep:
 
             # dense BA over active ∪ recent-inactive edges
             with span("round.ba"):
+                idx, _ = self._indices(g, act)
                 poses, disps = self.ba(self._ba_inputs(g),
-                                       self._ba_indices(g))
+                                       idx[5 * self.EA:])
                 st.poses.copy_(poses)
                 st.disps.copy_(disps)
             g.age = np.where(g.active, g.age + 1, g.age)
@@ -392,9 +454,10 @@ class KeyframeStep:
         if self.cache_vols and g.active.any():
             with span("keyframe.volumes"):
                 act = np.nonzero(g.active)[0]
-                vols = edge_volumes(st.fmaps,
-                                    _rows(g.ii[act], video.device),
-                                    _rows(g.jj[act], video.device))
+                idx, _ = self._indices(g, act)
+                E, EA = len(act), self.EA
+                vols = edge_volumes(st.fmaps, idx[EA:EA + E],
+                                    idx[2 * EA:2 * EA + E])
         for _ in range(cfg.frontend_iters1):
             g = self.update_round(g, vols)
         del vols

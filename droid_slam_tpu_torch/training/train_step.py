@@ -30,7 +30,6 @@ from ..lie import se3
 from ..models.droidnet import DroidNet, random_init
 from ..parallel.launch import world_size
 from ..runtime.slam import resolve_device
-from ..utils.timers import sync_site
 
 WEIGHT_DECAY = 1e-5
 
@@ -190,11 +189,8 @@ def make_train_step(*, iters=15, fix_scale=True, w1=10.0, w2=0.01, w3=0.05,
         loss, metrics = loss_fn(net, batch, Gs0, disp0)
         names, params = zip(*net.named_parameters())
         world = world_size()
-        # the backward waits once per unrolled iteration: the gradient of
-        # GraphAgg's boolean index (models/update.segment_mean)
-        with sync_site("backward", iters):
-            grads = torch.autograd.grad(loss / world if world > 1 else loss,
-                                        params, allow_unused=True)
+        grads = torch.autograd.grad(loss / world if world > 1 else loss,
+                                    params, allow_unused=True)
         bad = 0
         total = 0
         for name, p, g in zip(names, params, grads):

@@ -541,11 +541,10 @@ def test_ba_graph_replays_the_eager_static_path():
     seen = []
 
     def both(tensors, idx):
-        want = [t.clone() for t in step._round_ba(
-            *tensors, torch.from_numpy(idx).cuda())]
+        want = [t.clone() for t in step._round_ba(*tensors, idx)]
         got = [t.clone() for t in graphed(tensors, idx)]
         again = graphed(tensors, idx)
-        seen.append((idx.tobytes(), all(
+        seen.append((idx.cpu().numpy().tobytes(), all(
             torch.equal(a, b) and torch.equal(a, c)
             for a, b, c in zip(got, want, again))))
         return again
@@ -580,8 +579,9 @@ def test_ba_graph_and_its_eager_path_never_wait_for_the_card():
     droid, _, _ = _booted_droid()
     step, g = droid.frontend.step, droid.frontend.g
     tensors = step._ba_inputs(g)
-    idx = torch.from_numpy(step._ba_indices(g)).cuda()
-    step.ba.idx.copy_(idx)
+    idx, _ = step._indices(g, np.nonzero(g.active)[0])
+    idx = idx[5 * step.EA:]
+    assert idx.data_ptr() == step.ba.idx.data_ptr()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -590,6 +590,85 @@ def test_ba_graph_and_its_eager_path_never_wait_for_the_card():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("upsample", [False, True])
+def test_update_graphs_replay_the_eager_operator(upsample):
+    """The update operator's graphs, captured at the boot for every edge
+    count, against the operator run eagerly on the same inputs, bit for
+    bit, at several edge counts and segment layouts; a call whose segment
+    count is not its edge count runs eagerly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from droid_slam_tpu_torch.utils import timers
+
+    droid, _, _ = _booted_droid(upsample=upsample)
+    step = droid.frontend.step
+    table = step.op_graphs
+    assert sorted(table.graphs) == list(range(1, step.EA + 1))
+    update = droid.net.update
+    h, w = droid.video.fht, droid.video.fwd
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timers.reset()
+    timers.enable()
+    try:
+        for E in (1, 2, 7, 23, step.EA):
+            x = [torch.randn((E, h, w, c), device="cuda", generator=gen)
+                 for c in (128, 128, 196, 4)]
+            x[1] = x[1].to(droid.video.state.inps.dtype)
+            ix = torch.randint(0, max(1, E // 3), (E,), device="cuda",
+                               generator=gen)
+            want = update(*x, ix=ix, nseg=E, with_upmask=upsample)
+            got = update(*x, ix=ix, nseg=E, with_upmask=upsample,
+                         graphs=table)
+            assert len(got) == len(want) == 4 + upsample
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), E
+            update(*x, ix=ix, nseg=E + 1, with_upmask=upsample,
+                   graphs=table)
+        counts = timers.counts()
+    finally:
+        timers.enable(False)
+        timers.reset()
+    assert counts["op.replay"] == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_mb", [0, 512])
+def test_a_keyframe_round_never_waits_for_the_card(cache_mb):
+    """One update round of the fused step, from the upload of its indices
+    to the BA's replay, with volumes correlated on the fly and cached,
+    under `torch.cuda.set_sync_debug_mode("error")`: no call waits for the
+    card, and the operator and the BA both replay their graphs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from droid_slam_tpu_torch.runtime import fused
+    from droid_slam_tpu_torch.utils import timers
+
+    droid, _, _ = _booted_droid(corr_cache_mb=cache_mb)
+    step, g = droid.frontend.step, droid.frontend.g
+    assert step.cache_vols == (cache_mb > 0)
+    act = np.nonzero(g.active)[0]
+    vols = None
+    if step.cache_vols:
+        vols = fused.edge_volumes(droid.video.state.fmaps,
+                                  torch.as_tensor(g.ii[act], device="cuda"),
+                                  torch.as_tensor(g.jj[act], device="cuda"))
+    step.upload.last = None          # the round uploads its indices anew
+    torch.cuda.synchronize()
+    timers.reset()
+    timers.enable()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step.update_round(g, vols)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        timers.enable(False)
+    counts = timers.counts()
+    timers.reset()
+    torch.cuda.synchronize()
+    assert counts["op.replay"] == counts["ba.replay"] == 1
+    assert not [k for k in counts if k.startswith("sync.")], counts
 
 
 @pytest.mark.cuda
@@ -680,8 +759,14 @@ def test_every_host_wait_of_a_frame_is_a_counted_sync_site(cache_mb):
                 lambda: droid.track(float(k), imgs[k], intrinsics=intr))
             assert kf == want
             assert warned > 0 and counted == warned, (k, warned, counted)
+        counts = timers.counts()
     finally:
         timers.reset()
+    # the rounds wait nowhere: their indices go up in one upload without
+    # a wait, GraphAgg and the BA read them on the card
+    assert not {"sync.segments.unique", "sync.graphagg.mask",
+                "sync.graphagg.bincount", "sync.h2d.ba"} & set(counts)
+    assert counts["op.replay"] == counts["round.update_op"] >= 4
 
 
 @pytest.mark.cuda
